@@ -1,0 +1,151 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library
+with a plain C interface, loaded with ``ctypes``.  The library is built
+at first use into ``_build/`` beside this package, under a name keyed
+by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once.  Nothing here runs at import time: the
+package imports on machines with no ``nvcc`` and no card.
+
+Every C entry point returns a ``cudaError_t``; :func:`check` raises on a
+non-zero code, so a refused launch is an error and never a silent no-op.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _I64, _U32, _U64, _F = (ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_int64, ctypes.c_uint32,
+                                ctypes.c_uint64, ctypes.c_float)
+_SIGNATURES = {
+    "llpf_philox_bits": [_P, _I64, _U32, _U32, _P, _P],
+    "llpf_curand_philox_bits": [_P, _I64, _U32, _U32, _P, _P],
+    "llpf_normal": [_P, _I64, _U64, _U32, _U32, _P],
+    "llpf_add_gaussian_noise": [_P, _P, _P, _I64, _I, _U64, _U32, _P],
+    "llpf_systematic_gather": [_P, _P, _P, _I64, _I, _I, _P],
+    "llpf_pf_scan_grid": [_I, _P],
+    "llpf_pf_loglik_scan": [_P] * 19 + [_I, _I, _I, _I, _F, _F, _F, _I, _I,
+                                        _U64, _I, _P],
+}
+
+
+@dataclass
+class KernelInfo:
+    """One hand-written kernel: where it lives, what TPU kernel it
+    replaces, and how many times its wrapper has launched it."""
+
+    name: str
+    source: str
+    replaces: str
+    launches: int = 0
+
+
+@dataclass
+class _Loaded:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float
+    log: str
+
+
+_STATE: dict = {}
+
+
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the CUDA kernels")
+
+
+def _build() -> tuple[Path, float, str]:
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out = BUILD_DIR / f"libllpf_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, secs, proc.stdout + proc.stderr
+
+
+def library() -> _Loaded:
+    """The loaded kernel library, built on first call."""
+    if "lib" not in _STATE:
+        path, secs, log = _build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _STATE["lib"] = _Loaded(lib, path, secs, log)
+    return _STATE["lib"]
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def stream_ptr(t) -> int:
+    """The current CUDA stream of ``t``'s device, as a pointer."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda_f32(name: str, t, shape=None) -> None:
+    """Check a kernel input: CUDA, float32, contiguous, no autograd."""
+    import torch
+
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.requires_grad:
+        raise RuntimeError(f"{name} requires grad, but the CUDA kernels are "
+                           "forward-only; use method='sequential' to "
+                           "differentiate")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
