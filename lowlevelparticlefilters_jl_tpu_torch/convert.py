@@ -3,7 +3,8 @@
 A model defined in the JAX package carries across as
 ``np.asarray(...)`` of its arrays; nothing here imports JAX.  A particle
 filter's callbacks are code, not parameters, and are supplied in
-PyTorch.
+PyTorch.  Tensors go to the card unless ``device`` says otherwise, and
+without a card a call that names no device raises.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from .filters.kalman import KalmanFilter
 from .filters.particle import ParticleFilter
+from .kernels._lib import default_device
 from .ops.mvnormal import MvNormal
 
 
@@ -37,6 +39,7 @@ def kalman_filter_from_numpy(A, B, C, D, R1, R2, d0_mean=None, d0_cov=None,
     """A :class:`KalmanFilter` from arrays.  ``A`` (and the others) may
     be ``[T, ...]`` time-stacked.  ``D`` of 0 or None means no
     feedthrough; ``d0`` defaults to N(0, R1)."""
+    device = default_device(device)
     d0 = None
     if d0_cov is not None:
         d0 = _density(d0_mean, d0_cov, dtype, device)
@@ -58,6 +61,7 @@ def particle_filter_from_numpy(N: int, dynamics: Callable,
                                ) -> ParticleFilter:
     """A bootstrap :class:`ParticleFilter` with Gaussian densities from
     arrays and the torch callbacks ``dynamics``/``measurement``."""
+    device = default_device(device)
     return ParticleFilter(
         N=N, dynamics=dynamics, measurement=measurement,
         dynamics_density=_density(R1_mean, R1, dtype, device),
@@ -71,6 +75,7 @@ def particle_filter_from_numpy(N: int, dynamics: Callable,
 def linear_callbacks(A, B, C, dtype=torch.float32, device=None):
     """``f(x, u, p, t) = A x + B u`` and ``g(x, u, p, t) = C x`` as torch
     callbacks over the given arrays (the benchmark's model form)."""
+    device = default_device(device)
     At, Bt, Ct = (_t(M, dtype, device) for M in (A, B, C))
 
     def dynamics(x, u, p, t):

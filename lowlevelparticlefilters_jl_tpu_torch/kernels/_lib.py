@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library is built
-at first use into ``_build/`` beside this package, under a name keyed
-by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing here runs at import time: the
+Each ``csrc/*.cu`` file compiles with its own ``nvcc``, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ``ctypes``.  The library is built at first use
+into ``_build/`` beside this package, under a name keyed by a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one
+loads at once.  Nothing here runs at import time: the
 package imports on machines with no ``nvcc`` and no card.
 
 Every C entry point returns a ``cudaError_t``; :func:`check` raises on a
@@ -24,8 +25,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P, _I, _I64, _U32, _U64, _F = (ctypes.c_void_p, ctypes.c_int,
                                 ctypes.c_int64, ctypes.c_uint32,
@@ -39,6 +41,9 @@ _SIGNATURES = {
     "llpf_pf_scan_grid": [_I, _P],
     "llpf_pf_loglik_scan": [_P] * 19 + [_I, _I, _I, _I, _F, _F, _F, _I, _I,
                                         _U64, _I, _P],
+    "llpf_assoc_scan": [_P, _P, _P, _I64, _I64, _I, _I, _P],
+    "llpf_bank_loglik": [_P, _I, _P, _P, _I64, _P, _P, _I64, _I, _I, _I, _I,
+                         _P],
 }
 
 
@@ -89,21 +94,43 @@ def _build() -> tuple[Path, float, str]:
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    out = BUILD_DIR / f"libllpf_{h.hexdigest()[:16]}.so"
+    tag = h.hexdigest()[:16]
+    out = BUILD_DIR / f"libllpf_{tag}.so"
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
+    jobs = []
+    for s in srcs:
+        if s.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{s.stem}_{tag}.{pid}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(s)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(f"== {Path(cmd[-1]).name} ==\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+    if failed:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out.with_suffix(f".{pid}.tmp")
+    cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+           *[str(obj) for _, obj, _ in jobs]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
+    for _, obj, _ in jobs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
-    return out, secs, proc.stdout + proc.stderr
+    return out, time.perf_counter() - t0, "\n".join(log)
 
 
 def library() -> _Loaded:
@@ -123,6 +150,19 @@ def check(code: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def default_device(device=None):
+    """``device`` as a ``torch.device``; when None, the card.  Without a
+    card that raises: code that means the CPU says so."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build on "
+                           "the CPU")
+    return torch.device("cuda")
 
 
 def stream_ptr(t) -> int:

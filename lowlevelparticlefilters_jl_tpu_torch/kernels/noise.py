@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from ._lib import (KernelInfo, check, library, require_cuda_f32,
-                   stream_ptr)
+from ._lib import (KernelInfo, check, default_device, library,
+                   require_cuda_f32, stream_ptr)
 
 TAG_NORMAL, TAG_PROPAGATE, TAG_INIT, TAG_RESAMPLE = 1, 2, 3, 4
 
@@ -115,12 +115,13 @@ def normal_plain(seed: int, n: int, *, tag: int = TAG_NORMAL, step: int = 0,
 
 def normal(seed: int, shape, *, tag: int = TAG_NORMAL, step: int = 0,
            device=None) -> torch.Tensor:
-    """Standard normals of ``shape`` (f32) from (seed, tag, step)."""
+    """Standard normals of ``shape`` (f32) from (seed, tag, step), on
+    ``device`` (default: the card; raises without one)."""
     shape = tuple(shape)
     n = 1
     for s in shape:
         n *= int(s)
-    device = torch.device(device if device is not None else "cpu")
+    device = default_device(device)
     if device.type != "cuda":
         return normal_plain(seed, n, tag=tag, step=step,
                             device=device).reshape(shape)

@@ -66,6 +66,39 @@ def tri_solve(L: torch.Tensor, B: torch.Tensor, *,
     return torch.linalg.solve_triangular(L, B, upper=not lower)
 
 
+def _lu_solve_unrolled(M: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Unrolled Gaussian elimination without pivoting, batched over
+    leading axes.  Safe only where the leading principal minors are well
+    away from zero, e.g. ``I + C J`` with C, J PSD (every eigenvalue
+    >= 1), the associative-scan combine's system.  ``B``: [..., n, m]."""
+    n = M.shape[-1]
+    rowsM = [M[..., i, :] for i in range(n)]
+    rowsB = [B[..., i, :] for i in range(n)]
+    for k in range(n):
+        pivM, pivB = rowsM[k], rowsB[k]
+        piv = pivM[..., k:k + 1]
+        for i in range(k + 1, n):
+            f = rowsM[i][..., k:k + 1] / piv
+            rowsM[i] = rowsM[i] - f * pivM
+            rowsB[i] = rowsB[i] - f * pivB
+    X: list = [None] * n
+    for i in range(n - 1, -1, -1):
+        acc = rowsB[i]
+        for j in range(i + 1, n):
+            acc = acc - rowsM[i][..., j:j + 1] * X[j]
+        X[i] = acc / rowsM[i][..., i:i + 1]
+    return torch.stack(X, -2)
+
+
+def solve_nopivot(M: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``M X = B`` by unrolled no-pivot elimination up to n = 8 (the
+    caller guarantees pivot safety, see :func:`_lu_solve_unrolled`), by
+    ``torch.linalg.solve`` above."""
+    if M.shape[-1] <= _UNROLL_N:
+        return _lu_solve_unrolled(M, B)
+    return torch.linalg.solve(M, B)
+
+
 def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve (L L^T) X = B given the lower Cholesky factor L."""
     y = tri_solve(L, B, lower=True)

@@ -27,17 +27,22 @@ def _as_u_seq(u, T: int, dtype, device=None) -> torch.Tensor:
 def forward_trajectory(f, u, y, p=None, *, method: str = "auto", **kwargs):
     """Run a filter over inputs ``u[T, nu]`` and measurements ``y[T, ny]``.
 
-    Kalman filters return a :class:`KalmanFilteringSolution`, particle
-    filters a ``ParticleFilteringSolution`` from their own method.  The
-    port has no fused or temporal-parallel KF route yet: every method
-    runs the sequential recursion and ``last_route()`` says so.
+    Kalman filters return a :class:`KalmanFilteringSolution`: through the
+    temporal-parallel path (``parallel/temporal.py``, kernel K on CUDA
+    float32) when ``routing`` admits it — ``method="auto"`` on CUDA
+    tensors from ``T_PARALLEL`` steps, ``"parallel"`` always — else the
+    sequential recursion.  Particle filters return a
+    ``ParticleFilteringSolution`` from their own method.
+    ``last_route("forward_trajectory")`` names the path taken.
     """
-    from .routing import _check_method, _record
+    from .routing import _check_method, route_forward_trajectory
 
     _check_method(method)
     if hasattr(f, "forward_trajectory"):
         return f.forward_trajectory(u, y, p, **kwargs)
-    _record("forward_trajectory", "sequential")
+    sol = route_forward_trajectory(f, u, y, p, method)
+    if sol is not None:
+        return sol
     return kalman_forward_trajectory(f, u, y, p).replace(route="sequential")
 
 
@@ -72,13 +77,17 @@ def kalman_forward_trajectory(kf, u, y, p=None) -> KalmanFilteringSolution:
 
 def loglik(f, u, y, p=None, method: str = "auto", **kwargs):
     """Total log-likelihood of the data.  Particle filters route through
-    ``routing.route_pf_loglik`` (the fused kernel on CUDA tensors);
-    Kalman filters run the sequential recursion."""
+    ``routing.route_pf_loglik`` (kernel A on CUDA tensors); Kalman
+    filters through ``routing.route_kalman_loglik`` (the temporal-parallel
+    path, as for :func:`forward_trajectory`) or the sequential
+    recursion."""
     if hasattr(f, "loglik"):
         return f.loglik(u, y, p, method=method, **kwargs)
     from .routing import route_kalman_loglik
 
-    route_kalman_loglik(f, u, y, p, method)
+    ll = route_kalman_loglik(f, u, y, p, method)
+    if ll is not None:
+        return ll
     T = y.shape[0]
     u_seq = _as_u_seq(u, T, y.dtype, y.device)
     state = f.init()

@@ -45,6 +45,24 @@ class KalmanFilteringSolution:
 
 
 @struct
+class KalmanSmoothingSolution:
+    """A filtering solution plus the smoothed estimates:
+
+    - ``xT`` : smoothed states x(t|T), [T, nx]
+    - ``RT`` : smoothed covariances R(t|T), [T, nx, nx]
+
+    Other attributes are read through from ``sol``.
+    """
+
+    sol: KalmanFilteringSolution
+    xT: torch.Tensor
+    RT: torch.Tensor
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, "sol"), name)
+
+
+@struct
 class ParticleFilteringSolution:
     """Result of `forward_trajectory` for particle filters:
 

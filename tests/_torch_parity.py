@@ -26,7 +26,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def lattice_case(N, T, device=None, seed=0):
+def lattice_case(N, T, device="cpu", seed=0):
     """A no-noise filter whose resampling is exact in f32 in any sum order.
 
     States are multiples of 8 in 8 coordinates (four with 2 levels, four

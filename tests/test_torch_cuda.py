@@ -13,11 +13,22 @@ from _torch_parity import (A, B, C, R1, R2, cuda_device,  # noqa: F401
 
 import lowlevelparticlefilters_jl_tpu_torch as llpt
 from lowlevelparticlefilters_jl_tpu_torch import convert
-from lowlevelparticlefilters_jl_tpu_torch.kernels import (noise, pf_scan,
-                                                          resample_route)
+from lowlevelparticlefilters_jl_tpu_torch.filters import bank as tbank
+from lowlevelparticlefilters_jl_tpu_torch.kernels import (
+    assoc_scan, bank_scan, noise, pf_scan, resample_route)
 from lowlevelparticlefilters_jl_tpu_torch.ops import resample as trs
 
 pytestmark = pytest.mark.cuda
+
+
+def test_builders_default_to_the_card(cuda_device):
+    kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2)
+    f, _ = convert.linear_callbacks(A, B, C)
+    pf = convert.particle_filter_from_numpy(10, f, f, R1, R2, R1)
+    assert kf.A.is_cuda and kf.d0.cov.is_cuda
+    assert pf.initial_density.mean.is_cuda
+    assert noise.normal(0, (4,)).is_cuda
+    assert noise.NORMAL.launches >= 1
 
 
 def test_philox_bits_match_plain_and_curand(cuda_device):
@@ -62,7 +73,7 @@ def _model(N, device, threshold=0.1, C_=C):
 
 
 def _data(T, seed=1):
-    kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2)
+    kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, device="cpu")
     u = torch.full((T, 1), 0.3, dtype=torch.float64)
     _, u, y = llpt.simulate(kf, u, torch.Generator().manual_seed(seed))
     return kf, u, y
@@ -109,3 +120,99 @@ def test_main_path_on_card(cuda_device):
     assert llpt.last_route() == "cuda_fused_scan"
     assert pf_scan.PF_LOGLIK_SCAN.launches == before + 1
     assert abs(float(ll) - ll_kf) < 0.01 * abs(ll_kf)
+
+
+def _psd(g, T, nx, scale):
+    h = 0.3 * torch.randn(T, nx, nx, generator=g)
+    return h @ h.mT + scale * torch.eye(nx)
+
+
+def _elements(kind, T, nx, seed):
+    g = torch.Generator().manual_seed(seed)
+    if kind == assoc_scan.FILTER:
+        el = (0.3 * torch.randn(T, nx, nx, generator=g),
+              torch.randn(T, nx, generator=g), _psd(g, T, nx, 0.1),
+              torch.randn(T, nx, generator=g), _psd(g, T, nx, 0.1))
+    else:  # E contracting at every nx, so long products stay finite
+        el = (0.4 * min(1.0, (2 / nx) ** 0.5)
+              * torch.randn(T, nx, nx, generator=g),
+              torch.randn(T, nx, generator=g), _psd(g, T, nx, 0.0))
+    return el
+
+
+@pytest.mark.parametrize("kind", [0, 1])
+@pytest.mark.parametrize("nx,T", [(2, 1), (2, 15), (2, 16), (2, 17),
+                                  (2, 257), (2, 4097), (1, 3000),
+                                  (3, 3000), (8, 3000)])
+def test_assoc_scan_matches_twin(cuda_device, kind, nx, T):
+    """Kernel K against its Hillis–Steele twin on the same elements,
+    rtol 2e-4, atol 2e-5 (f32 in another association order); T crosses
+    the 16-step chunks and the levels of the recursion."""
+    el = _elements(kind, T, nx, seed=T + nx)
+    run = assoc_scan.filter_scan if kind == 0 else assoc_scan.smooth_scan
+    ref = run(*el)
+    before = assoc_scan.ASSOC_SCAN.launches
+    out = run(*(e.to(cuda_device) for e in el))
+    assert assoc_scan.ASSOC_SCAN.launches == before + 1
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o.cpu(), r, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("Bk,T,nu,shared", [(1024, 200, 1, False),
+                                            (37, 70, 1, True),
+                                            (300, 65, 0, False)])
+def test_bank_kernel_matches_twin(cuda_device, Bk, T, nu, shared):
+    """Kernel F against its plain twin on the card, rtol 2e-5, atol 1e-4
+    (f32; the kernel contracts multiply-adds); T crosses the 64-step
+    staging of the scalars, B a partial block."""
+    kf = convert.kalman_filter_from_numpy(
+        A, B if nu else None, C, 0, R1, R2, dtype=torch.float32,
+        device=cuda_device)
+    g = torch.Generator().manual_seed(Bk)
+    ys = torch.randn(Bk, T, 2, generator=g).to(cuda_device)
+    us = (0.3 * torch.randn(T, nu, generator=g).to(cuda_device)
+          [None].expand(Bk, T, nu) if shared
+          else 0.3 * torch.randn(Bk, T, nu, generator=g).to(cuda_device))
+    _, Sch, K, _, Am, Bm, Cm, Dm = tbank._shared_recursion(
+        kf, T, torch.float32, cuda_device)
+    scal, _ = bank_scan.bank_scalars(Sch, K, Am, Bm, Cm, Dm, nu)
+    x0 = kf.d0.mean.float().contiguous()
+    before = bank_scan.BANK_LOGLIK.launches
+    got = bank_scan.bank_loglik_scan(scal, ys, us, x0, 2, 2, nu)
+    assert bank_scan.BANK_LOGLIK.launches == before + 1
+    want = bank_scan.bank_loglik_scan_plain(scal, ys, us, x0, 2, 2, nu)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-4)
+
+
+def test_bank_and_parallel_routes_on_card(cuda_device):
+    """kf_bank_loglik takes kernels K and F once each; the KF verbs at
+    T >= 256 take kernel K; both agree with the f64 CPU results."""
+    kf64, u, y = _data(1000)
+    kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2,
+                                          dtype=torch.float32,
+                                          device=cuda_device)
+    uc, yc = u.float().to(cuda_device), y.float().to(cuda_device)
+    k0 = assoc_scan.ASSOC_SCAN.launches
+    ll = llpt.loglik(kf, uc, yc)
+    assert llpt.last_route() == "cuda_temporal_parallel"
+    assert assoc_scan.ASSOC_SCAN.launches == k0 + 1
+    ll_ref = float(llpt.loglik(kf64, u, y))
+    assert abs(float(ll) - ll_ref) < 1e-4 * abs(ll_ref)
+    sm = llpt.parallel_rts_smooth(kf, uc, yc)
+    assert assoc_scan.ASSOC_SCAN.launches == k0 + 3
+    sm_ref = llpt.parallel_rts_smooth(kf64, u, y)
+    torch.testing.assert_close(sm.xT.cpu().double(), sm_ref.xT, rtol=1e-3,
+                               atol=1e-4)
+
+    ys = torch.stack([y, -y, 0.5 * y] * 100)[:, :200].float().to(cuda_device)
+    us = u[:200].float().to(cuda_device)[None].expand(300, 200, 1)
+    f0 = bank_scan.BANK_LOGLIK.launches
+    k0 = assoc_scan.ASSOC_SCAN.launches
+    lls = llpt.kf_bank_loglik(kf, us, ys)
+    assert llpt.last_route("kf_bank_loglik") == "cuda_bank_kernel"
+    assert bank_scan.BANK_LOGLIK.launches == f0 + 1
+    assert assoc_scan.ASSOC_SCAN.launches == k0 + 1
+    ref = llpt.kf_bank_loglik(kf64, us[:3].cpu().double(),
+                              ys[:3].cpu().double(), method="plane")
+    torch.testing.assert_close(lls[:3].cpu().double(), ref, rtol=1e-4,
+                               atol=0.0)

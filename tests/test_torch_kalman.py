@@ -31,7 +31,7 @@ def _both(A_, alpha=1.0):
                                             jnp.asarray(d0c)),
                            alpha=alpha)
     kt = convert.kalman_filter_from_numpy(A_, B, C, 0, R1, R2, d0m, d0c,
-                                          alpha=alpha)
+                                          alpha=alpha, device="cpu")
     return kj, kt
 
 
@@ -74,7 +74,7 @@ def test_loglik_matches_jax(case):
 
 def test_missing_input_and_default_d0():
     kt = convert.kalman_filter_from_numpy(A, np.zeros((2, 1)), C, None, R1,
-                                          R2)
+                                          R2, device="cpu")
     kj = llpf.KalmanFilter(jnp.asarray(A), jnp.zeros((2, 1)), jnp.asarray(C),
                            0, jnp.asarray(R1), jnp.asarray(R2))
     _, y = _data(2, 40)
@@ -95,7 +95,7 @@ def test_resolve_mat_time_indexing():
 
 
 def test_simulate_shapes_and_generator():
-    kt = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2)
+    kt = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, device="cpu")
     u = torch.full((30, 1), 0.3, dtype=torch.float64)
     x, u2, y = llpt.simulate(kt, u, torch.Generator().manual_seed(0))
     x2, _, y2 = llpt.simulate(kt, u, torch.Generator().manual_seed(0))

@@ -24,18 +24,18 @@ def test_philox_words_are_uint32_and_counter_sensitive():
 
 def test_normal_moments():
     n = 1 << 16
-    z = noise.normal(1234, (n,)).double()
+    z = noise.normal(1234, (n,), device="cpu").double()
     se = 1.0 / math.sqrt(n)
     assert abs(float(z.mean())) < 4 * se
     # the variance of a sample variance of normals is 2/n
     assert abs(float(z.var()) - 1.0) < 4 * math.sqrt(2.0) * se
-    assert torch.equal(z, noise.normal(1234, (n,)).double())
-    assert not torch.equal(z, noise.normal(1235, (n,)).double())
+    assert torch.equal(z, noise.normal(1234, (n,), device="cpu").double())
+    assert not torch.equal(z, noise.normal(1235, (n,), device="cpu").double())
 
 
 def test_normal_layout_matches_rows():
     """Element k of the flat stream is lane k % 4 of Philox row k // 4."""
-    flat = noise.normal(7, (4, 5), step=3)
+    flat = noise.normal(7, (4, 5), step=3, device="cpu")
     rows = noise.normals_plain(7, noise.TAG_NORMAL, 3, 5, 4)
     assert torch.equal(flat.reshape(-1), rows.reshape(-1))
 

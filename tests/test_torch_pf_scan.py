@@ -37,9 +37,10 @@ def _pair(th, state_free_meas=False):
         initial_density=llpf.MvNormal(jnp.zeros(2, jnp.float32),
                                       jnp.eye(2, dtype=jnp.float32)),
         resample_threshold=th)
-    f, g = convert.linear_callbacks(A, B, Cm)
+    f, g = convert.linear_callbacks(A, B, Cm, device="cpu")
     pt = convert.particle_filter_from_numpy(N, f, g, R1z, R2, np.eye(2),
-                                            resample_threshold=th)
+                                            resample_threshold=th,
+                                            device="cpu")
     return pj, pt
 
 
@@ -121,7 +122,7 @@ def test_lattice_case_resamples_and_sees_a_one_slot_fault(monkeypatch):
     """The exact resampling case that holds kernel A to its twin on the
     card (tests/test_torch_cuda.py): it fires on some steps only, and a
     gather that puts one wrong particle in one slot changes the result."""
-    pf, u, y, x0 = lattice_case(4096, 60)
+    pf, u, y, x0 = lattice_case(4096, 60, "cpu")
     args = pf_scan.scan_inputs(pf, u, y)
     kw = dict(N=4096, thresh=float(pf.resample_threshold), seed=0,
               noise="none", x0=x0)

@@ -18,12 +18,12 @@ from lowlevelparticlefilters_jl_tpu_torch.kernels import pf_scan
 T = 50
 
 
-def _model(N, threshold=0.1, noise_backend="torch", device=None):
+def _model(N, threshold=0.1, noise_backend="torch", device="cpu"):
     f, g = convert.linear_callbacks(A, B, C, device=device)
     pf = convert.particle_filter_from_numpy(
         N, f, g, R1, R2, R1, resample_threshold=threshold,
         noise_backend=noise_backend, device=device)
-    kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2)
+    kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, device="cpu")
     return pf, kf
 
 
@@ -83,8 +83,9 @@ def test_route_by_admission(headline):
     nonlin.loglik(u.float(), y.float(), generator=g, method="fused")
     assert llpt.last_route("loglik") == "sequential"
     pf64 = convert.particle_filter_from_numpy(
-        100, *convert.linear_callbacks(A, B, C, dtype=torch.float64), R1, R2,
-        R1, dtype=torch.float64)
+        100, *convert.linear_callbacks(A, B, C, dtype=torch.float64,
+                                       device="cpu"), R1, R2,
+        R1, dtype=torch.float64, device="cpu")
     pf64.loglik(u, y, generator=g, method="fused")
     assert llpt.last_route("loglik") == "sequential"
     assert pf_scan.kernel_admits(pf, u.float(), y.float()) is not None
@@ -108,6 +109,11 @@ def test_import_loads_no_jax():
     code = ("import sys, lowlevelparticlefilters_jl_tpu_torch as m; "
             "import lowlevelparticlefilters_jl_tpu_torch.convert; "
             "import lowlevelparticlefilters_jl_tpu_torch.kernels.pf_scan; "
+            "import lowlevelparticlefilters_jl_tpu_torch.filters.bank; "
+            "import lowlevelparticlefilters_jl_tpu_torch.parallel.temporal; "
+            "import lowlevelparticlefilters_jl_tpu_torch.parallel.bank; "
+            "import lowlevelparticlefilters_jl_tpu_torch.kernels.bank_scan; "
+            "import lowlevelparticlefilters_jl_tpu_torch.kernels.assoc_scan; "
             "print(any(k == 'jax' or k.startswith('jax.') "
             "for k in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
