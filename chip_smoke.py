@@ -25,9 +25,25 @@ exits non-zero without its result lines):
    ``forward_trajectory`` and ``parallel_rts_smooth`` on CUDA tensors
    against float64 CPU references at T = 2000, 1e5 and 1e6; median time
    of 5 ``loglik`` calls at T = 1e5.
+8. kernel H on the 4-state CV model (bench.py:472-490), T = 5e4:
+   ``kf.loglik_fused``, ``loglik(kf, method="fused")``,
+   ``kf.forward_trajectory_fused`` and the affine CV UKF's
+   ``ukf_loglik_fused`` (H, not G); H against its twin at T = 2000 and
+   the ll against the float64 CPU sequential KF at T = 5000.
+9. kernel I on ``A x + 0.01 sin x`` (tests/test_ukf_fused.py:88-98),
+   T = 5e4: ``loglik`` under "auto", ``forward_trajectory`` with
+   ``method="fused"``, and a case with user Jacobians; I against its twin
+   at T = 2000, the ll against float64 CPU sequential at T = 5000.
+10. kernel G on the quadtank model (bench.py:695-712) under "auto" and
+   the CV UKF with ``force_kernel=True``, T = 5e4, and an angle-wrap
+   innovation hook (bench.py:211-233); G against its twin at T = 2000,
+   the ll against float64 CPU sequential at T = 5000.
+   Phases 8-10 print the median of 5 calls, the kernel's CUDA-event time,
+   the launches per call and the seconds of tracing and of the callback
+   library's build, apart from the calls.
 
-Launch counts are reset just before each path's run (phases 4-5, 6 and
-7) and read just after it; every kernel of the path must have launched
+Launch counts are reset just before each path's run (phases 4-5, 6, 7,
+8, 9 and 10) and read just after it; every kernel of the path must have launched
 there.  The kernels line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over 67 T/s) and the card's
 ``nvidia-smi`` line come before the last line,
@@ -42,11 +58,15 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SEED = 0
 N_MAIN, T_MAIN, THRESH = 100_000, 1000, 0.1
 T_BANK, T_PAR = 200, 100_000
+T_SCAN, T_TWIN, T_REF = 50_000, 2_000, 5_000  # phases 8-10
+CV_A = [[1, 0, 0.1, 0], [0, 1, 0, 0.1], [0, 0, 1, 0], [0, 0, 0, 1]]
+CV_C = [[1, 0, 0, 0], [0, 1, 0, 0]]
 HBM_BYTES_PER_S, PEAK_OPS_PER_S = 3.35e12, 67e12  # one H100 SXM, 700 W
 # arithmetic model of the noise kernels: one Philox4x32-10 call (4 words)
 # is ~100 integer operations, one Box-Muller normal ~20 (special
@@ -162,11 +182,344 @@ def register_table(log):
     return rows
 
 
+def check_twin(what, got, want, fields):
+    """A whole-scan kernel against its twin: ll within 1e-5 relative, the
+    solution within rtol 2e-4, atol 1e-5 (the JAX tests' trajectory
+    bounds, tests/test_ukf_fused.py:139); the largest absolute
+    difference."""
+    (llg, og), (llw, ow) = got, want
+    llg, llw = float(llg), float(llw)
+    require(abs(llg - llw) <= 1e-5 * abs(llw),
+            f"{what}: ll {llg} within 1e-5 of the twin's {llw}")
+    err = abs(llg - llw)
+    for name, a, b in zip(fields, og or (), ow or ()):
+        require(torch.allclose(a, b, rtol=2e-4, atol=1e-5),
+                f"{what}: {name} within rtol 2e-4, atol 1e-5 of the twin")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def check_ref(what, ll, ref, tol=1e-4):
+    rel = abs(float(ll) - ref) / abs(ref)
+    require(rel < tol, f"{what}: ll {float(ll)} within {tol} of the float64 "
+            f"CPU sequential {ref} (got {rel:.3g})")
+    return rel
+
+
+def per_step_ops_ekf(nx, ny, n_f, n_g, dual):
+    """Operations of one EKF step (csrc/ukf_scan.cuh): the callbacks (a
+    dual-number instruction costs nx + 1), the gain, the updates."""
+    cb = (n_f + n_g) * ((nx + 1) if dual else 1)
+    return (cb + 2 * ny * nx * nx + 2 * ny * ny * nx + 3 * ny * ny + ny ** 3
+            + 4 * ny * ny * nx + 2 * nx * ny + 2 * nx * nx * ny
+            + 3 * nx * nx + ny * ny + 3 * ny + 4 + 6 * nx ** 3
+            + 3 * nx * nx)
+
+
+def per_step_ops_ukf(nx, ny, n_f, n_g):
+    """Operations of one UKF step, each counted once (the lanes of the
+    warp repeat the shared algebra): two factorizations and sigma sets,
+    the callbacks on 2nx + 1 points, the UT sums, the gain, the updates."""
+    ns = 2 * nx + 1
+    return (2 * (nx ** 3 + 2 * nx * nx + ns * nx) + ns * (n_f + n_g)
+            + 2 * ns * ny + 3 * ns * ny * ny + 3 * ns * nx * ny + ny ** 3
+            + 4 * ny * ny * nx + 2 * nx * ny + 2 * nx * ny * ny
+            + 2 * nx * nx * ny + 3 * nx * nx + ny * ny + 3 * ny + 4
+            + 2 * ns * nx + 3 * ns * nx * nx + 2 * nx * nx)
+
+
+def riccati_steps(A, C, R1, R2, P0, alpha, ftol):
+    """Steps kernel H runs the Riccati update before it freezes (its
+    criterion, float32 on the host): the data-dependent part of its
+    work."""
+    from lowlevelparticlefilters_jl_tpu_torch.ops.linalg import (
+        chol_lower, symmetrize, tri_solve)
+
+    R, n = P0.cpu(), 0
+    A, C, R1, R2 = (M.cpu() for M in (A, C, R1, R2))
+    while n < 100_000:
+        n += 1
+        CR = C @ R
+        L = chol_lower(symmetrize(CR @ C.T) + R2)
+        Kt = tri_solve(L.T, tri_solve(L, CR), lower=False)
+        Rn = alpha * symmetrize(A @ symmetrize(R - Kt.T @ CR) @ A.T) + R1
+        if float((Rn - R).abs().max()) <= ftol * (1 + float(Rn.abs().max())):
+            return n
+        R = Rn
+    return n
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def whole_scan_phases(dev, kernels, stats, launches, smi):
+    """Phases 8-10: the whole-scan kernels H, I and G on their main paths
+    (see the module doc); fills ``stats`` and ``launches``."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch import convert
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import _lib, ukf_scan
+
+    FIELDS = ukf_scan._FIELDS
+    AKF, EKF, UKF = ukf_scan.AKF_SCAN, ukf_scan.EKF_SCAN, ukf_scan.UKF_SCAN
+    eye = lambda n, s=1.0, dt=torch.float32, d=dev: s * torch.eye(  # noqa
+        n, dtype=dt, device=d)
+    mat = lambda M, dt=torch.float32, d=dev: torch.tensor(  # noqa: E731
+        M, dtype=dt, device=d)
+
+    def randn(T, ny, seed, scale=1.0, shift=0.0):
+        g = torch.Generator().manual_seed(seed)
+        return shift + scale * torch.randn(T, ny, generator=g)
+
+    def solution(sol):
+        return sol.ll, tuple(getattr(sol, f) for f in FIELDS)
+
+    def report(tag, kinfo, call, trace_s, build_s):
+        """Median of 5 host-clock calls after a warm-up, launches a call."""
+        k0 = kinfo.launches
+        med = host_median_ms(call)
+        per = (kinfo.launches - k0) / 6
+        log(tag, f"median of 5: {med:.3f} ms, {T_SCAN / med * 1e3:.4g} "
+            f"steps/s; {per:g} launch(es) of {kinfo.name} a call; tracing "
+            f"{trace_s} s, callback build {build_s} s, apart from the "
+            f"calls ({smi})")
+
+    def prepare(comp):
+        """Trace (already done, timed by _cached) and build a filter's
+        callback library, apart from its first call."""
+        t0, nb = time.perf_counter(), len(_lib.GEN_BUILDS)
+        comp.library()
+        dt = time.perf_counter() - t0
+        for name, regs, spill in register_table(
+                _lib.GEN_BUILDS[0][1] if len(_lib.GEN_BUILDS) > nb else ""):
+            log("build", f"{comp.kind} {name}: {regs} registers, {spill} "
+                "bytes spilled")
+        return round(comp.trace_seconds, 3), round(dt, 3)
+
+    # ---- 8. kernel H ----------------------------------------------------------
+    kf8 = convert.kalman_filter_from_numpy(CV_A, None, CV_C, 0,
+                                           0.1 * np.eye(4), np.eye(2),
+                                           dtype=torch.float32, device=dev)
+    kf8_64 = convert.kalman_filter_from_numpy(CV_A, None, CV_C, 0,
+                                              0.1 * np.eye(4), np.eye(2),
+                                              device="cpu")
+    ys8 = randn(T_SCAN, 2, 80)
+    y8 = ys8.to(dev)
+    A8, C8 = mat(CV_A), mat(CV_C)
+    ukf8 = llpt.make_ukf(lambda x, u, p, t: A8 @ x, lambda x, u, p, t: C8 @ x,
+                         kf8.R1, kf8.R2, ny=2, nu=0)
+    for k in kernels:
+        k.launches = 0
+    ll8 = float(kf8.loglik_fused(y8))
+    require(llpt.last_route() == "cuda_fused_scan" and AKF.launches == 1,
+            f"kf.loglik_fused: route {llpt.last_route()}, {AKF.launches} H")
+    ll8b = float(llpt.loglik(kf8, None, y8, method="fused"))
+    require(llpt.last_route() == "cuda_fused_scan" and ll8b == ll8,
+            "loglik(kf, method='fused') takes H")
+    sol8 = kf8.forward_trajectory_fused(None, y8)
+    require(sol8.route == "cuda_fused_scan" and bool(sol8.ok.all())
+            and sol8.xt.shape == (T_SCAN, 4), "kf.forward_trajectory_fused")
+    llu8 = float(llpt.ukf_loglik_fused(ukf8, y8))
+    path8 = {k.name: k.launches for k in kernels}
+    require(path8["akf_scan"] == 4 and sum(path8.values()) == 4,
+            f"the affine UKF takes H and not G: launches {path8}")
+    require(abs(llu8 - ll8) <= 1e-6 * abs(ll8), f"affine UKF ll {llu8} = "
+            f"KF ll {ll8}")
+    launches["akf_scan"] = path8["akf_scan"]
+    v8 = ukf_scan.affinity(kf8, 0)  # the verdict kf8's calls reached
+    ekf8, (A8k, C8k) = v8.ekf, v8.AC
+
+    def akf_inputs(T):
+        cs, ds = ukf_scan.live_drives(*ukf_scan.drives(ekf8, None, T, dev))
+        return (y8[:T].contiguous(), cs, ds,
+                *ukf_scan._gaussian_inputs(ekf8, dev), A8k, C8k, 1.0)
+
+    a2k, a50 = akf_inputs(T_TWIN), akf_inputs(T_SCAN)
+    # the x = 0 drives of x' = A x, y = C x are zero: H reads ys alone
+    drives_read = sum(t.numel() for t in a50[1:3] if t is not None)
+    require(drives_read == 0, f"CV KF: zero drives not read ({drives_read})")
+    err8 = max(check_twin("H", ukf_scan.akf_scan(*a2k),
+                          ukf_scan.akf_scan_plain(*a2k), FIELDS),
+               check_twin("H solution", ukf_scan.akf_scan(*a2k, traj=True),
+                          ukf_scan.akf_scan_plain(*a2k, traj=True), FIELDS),
+               check_twin("forward_trajectory_fused", solution(
+                   kf8.forward_trajectory_fused(None, y8[:T_TWIN])),
+                   ukf_scan.akf_scan_plain(*a2k, traj=True), FIELDS))
+    ref8 = float(llpt.loglik(kf8_64, None, ys8[:T_REF].double(),
+                             method="sequential"))
+    rel8 = check_ref("H T=5000", kf8.loglik_fused(y8[:T_REF]), ref8)
+    n_ric = riccati_steps(A8k, C8k, kf8.R1, kf8.R2, kf8.d0.cov, 1.0,
+                          ukf_scan.FTOL)
+    ops8 = T_SCAN * 86 + n_ric * 900  # nx = 4, ny = 2 (see PERF.md)
+    stats["akf_scan"] = dict(
+        max_abs_err=err8, T=T_SCAN, plain_T=T_TWIN, library_ms=None,
+        ms=cuda_ms(lambda: ukf_scan.akf_scan(*a50), 20),
+        plain_ms=cuda_ms(lambda: ukf_scan.akf_scan_plain(*a2k), 1),
+        # ys and the drives it reads; x0, P0, R1, R2, A, C; ll
+        **bound(4 * (T_SCAN * 2 + drives_read + 65), ops8))
+    log("H akf_scan", f"T={T_SCAN}: ll {ll8} (loglik_fused, method='fused' "
+        f"and the affine UKF agree); T={T_REF} rel {rel8:.3g} vs f64 "
+        f"sequential; Riccati frozen after {n_ric} steps; launches {path8}; "
+        f"{stats['akf_scan']}")
+    report("H", AKF, lambda: kf8.loglik_fused(y8), "none", "none (main "
+           "library)")
+
+    # ---- 9. kernel I ----------------------------------------------------------
+    def nl_ekf(d, dt, user_jac=False):
+        A_, C_ = mat(CV_A, dt, d), mat(CV_C, dt, d)
+        jac = dict(Ajac=lambda x, u, p, t: A_ + 0.01 * torch.diag(
+            torch.cos(x)), Cjac=lambda x, u, p, t: C_) if user_jac else {}
+        return llpt.make_ekf(
+            lambda x, u, p, t: A_ @ x + 0.01 * torch.sin(x),
+            lambda x, u, p, t: C_ @ x, eye(4, 0.1, dt, d), eye(2, 1, dt, d),
+            d0=llpt.MvNormal(torch.zeros(4, dtype=dt, device=d),
+                             eye(4, 0.5, dt, d)), nu=0, ny=2, **jac)
+
+    e9, e9j = nl_ekf(dev, torch.float32), nl_ekf(dev, torch.float32, True)
+    ys9 = randn(T_SCAN, 2, 90)
+    y9 = ys9.to(dev)
+    ts9 = prepare(ukf_scan._ekf_programs(e9, 0, dev))
+    ts9j = prepare(ukf_scan._ekf_programs(e9j, 0, dev))
+    for k in kernels:
+        k.launches = 0
+    ll9 = float(llpt.loglik(e9, None, y9))
+    require(llpt.last_route() == "cuda_fused_scan" and EKF.launches == 1,
+            f"nonlinear EKF auto: route {llpt.last_route()}")
+    sol9 = llpt.forward_trajectory(e9, None, y9, method="fused")
+    require(sol9.route == "cuda_fused_scan" and bool(sol9.ok.all())
+            and abs(float(sol9.ll) - ll9) <= 1e-6 * abs(ll9),
+            "forward_trajectory(ekf, method='fused')")
+    ll9j = float(llpt.loglik(e9j, None, y9))
+    path9 = {k.name: k.launches for k in kernels}
+    require(path9["ekf_scan"] == 3 and sum(path9.values()) == 3,
+            f"EKF path launches {path9}")
+    require(abs(ll9j - ll9) <= 1e-4 * abs(ll9), f"user Jacobians: ll {ll9j} "
+            f"vs forward mode {ll9}")
+    launches["ekf_scan"] = path9["ekf_scan"]
+    y9t = y9[:T_TWIN].contiguous()
+    err9 = max(check_twin(f"I{tag}", ukf_scan.ekf_scan(f, y9t, traj=tr),
+                          ukf_scan.ekf_scan_plain(f, y9t, traj=tr), FIELDS)
+               for f, tag in ((e9, ""), (e9j, " user Jacobians"))
+               for tr in (False, True))
+    # float64 CPU references, with the exact Jacobians (the same filter,
+    # five times faster than forward mode on the CPU): at T = 5000 and at
+    # the main path's T, since I's ll at 5e4 has no other kernel to meet
+    e9_64 = nl_ekf("cpu", torch.float64, True)
+    ref9 = float(llpt.loglik(e9_64, None, ys9[:T_REF].double(),
+                             method="sequential"))
+    rel9 = check_ref("I T=5000", llpt.loglik(e9, None, y9[:T_REF]), ref9)
+    ref9m = float(llpt.loglik(e9_64, None, ys9.double(), method="sequential"))
+    rel9m = check_ref(f"I T={T_SCAN}", ll9, ref9m)
+    comp9 = ukf_scan._ekf_programs(e9, 0, dev)
+    n_f, n_g = (len(p.instrs) for _, p in comp9.progs[:2])
+    stats["ekf_scan"] = dict(
+        max_abs_err=err9, T=T_SCAN, plain_T=T_TWIN, library_ms=None,
+        ms=cuda_ms(lambda: ukf_scan.ekf_scan(e9, y9), 5),
+        plain_ms=cuda_ms(lambda: ukf_scan.ekf_scan_plain(e9, y9t), 1),
+        # ys, x0, P0, R1, R2, the callbacks' constants, ll
+        **bound(4 * (T_SCAN * 2 + 4 + 16 + 16 + 4 + 1 + sum(
+            p.n_consts for _, p in comp9.progs)),
+            T_SCAN * per_step_ops_ekf(4, 2, n_f, n_g, True)))
+    log("I ekf_scan", f"T={T_SCAN}: ll {ll9}, user Jacobians {ll9j}, rel "
+        f"{rel9m:.3g} vs f64 sequential; T={T_REF} rel {rel9:.3g}; "
+        f"launches {path9}; "
+        f"{stats['ekf_scan']}")
+    report("I", EKF, lambda: llpt.loglik(e9, None, y9), *ts9)
+    log("I", f"user-Jacobian filter: tracing {ts9j[0]} s, build {ts9j[1]} s")
+
+    # ---- 10. kernel G ---------------------------------------------------------
+    def quadtank(d, dt):
+        g1 = lambda x: torch.sqrt(torch.abs(x) + 0.1)  # noqa: E731
+
+        def dyn(x, u, p, t):
+            return x + 0.1 * torch.stack([-g1(x[0]) + 0.5 * g1(x[1]),
+                                          -0.5 * g1(x[1]) + 0.1])
+
+        return llpt.make_ukf(
+            dyn, lambda x, u, p, t: x, eye(2, 1e-3, dt, d),
+            eye(2, 1e-2, dt, d), ny=2, nu=0,
+            d0=llpt.MvNormal(torch.ones(2, dtype=dt, device=d),
+                             eye(2, 0.1, dt, d)))
+
+    def angle_ukf(d, dt):
+        wrap = lambda a: torch.remainder(a + math.pi, 2 * math.pi) - math.pi
+
+        mm = llpt.UKFMeasurementModel(
+            measurement=lambda x, u, p, t: x[:1], R2=eye(1, 0.05, dt, d),
+            ny=1, innovation=lambda y_, yh: wrap(y_ - yh))
+        return llpt.UnscentedKalmanFilter(
+            dynamics=lambda x, u, p, t: torch.stack(
+                [wrap(x[0] + 0.1 * x[1]), 0.98 * x[1]]),
+            measurement_model=mm,
+            R1=torch.diag(torch.tensor([0.01, 0.001], dtype=dt, device=d)),
+            nu=0)
+
+    q10 = quadtank(dev, torch.float32)
+    ang10 = angle_ukf(dev, torch.float32)
+    ys10 = randn(T_SCAN, 2, 100, scale=0.1, shift=1.0)
+    y10 = ys10.to(dev)
+    angs = torch.cumsum(0.12 * torch.ones(4096, dtype=torch.float64), 0) - 2
+    ya = (torch.remainder(angs + math.pi, 2 * math.pi) - math.pi)[:, None] \
+        + 0.1 * randn(4096, 1, 101).double()
+    ts10 = prepare(ukf_scan._ukf_programs(q10, 0, dev))
+    ts10cv = prepare(ukf_scan._ukf_programs(ukf8, 0, dev))
+    ts10a = prepare(ukf_scan._ukf_programs(ang10, 0, dev))
+    for k in kernels:
+        k.launches = 0
+    ll10 = float(llpt.loglik(q10, None, y10))
+    require(llpt.last_route() == "cuda_fused_scan" and UKF.launches == 1,
+            f"quadtank UKF auto: route {llpt.last_route()}")
+    ll10cv = float(llpt.ukf_loglik_fused(ukf8, y8, force_kernel=True))
+    ll10a = float(llpt.loglik(ang10, None, ya.float().to(dev)))
+    path10 = {k.name: k.launches for k in kernels}
+    require(path10["ukf_scan"] == 3 and sum(path10.values()) == 3,
+            f"UKF path launches {path10}")
+    require(abs(ll10cv - ll8) <= 1e-4 * abs(ll8), f"CV UKF through G "
+            f"{ll10cv} vs H {ll8}")
+    launches["ukf_scan"] = path10["ukf_scan"]
+    y10t = y10[:T_TWIN].contiguous()
+    yat = ya[:T_TWIN].float().to(dev)
+    err10 = max(
+        check_twin("G quadtank", ukf_scan.ukf_scan(q10, y10t, traj=True),
+                   ukf_scan.ukf_scan_plain(q10, y10t, traj=True), FIELDS),
+        check_twin("G quadtank ll", ukf_scan.ukf_scan(q10, y10t),
+                   ukf_scan.ukf_scan_plain(q10, y10t), FIELDS),
+        check_twin("G CV", ukf_scan.ukf_scan(ukf8, y8[:T_TWIN].contiguous()),
+                   ukf_scan.ukf_scan_plain(ukf8, y8[:T_TWIN].contiguous()),
+                   FIELDS),
+        check_twin("G angle hook", ukf_scan.ukf_scan(ang10, yat),
+                   ukf_scan.ukf_scan_plain(ang10, yat), FIELDS))
+    ref10 = float(llpt.loglik(quadtank("cpu", torch.float64), None,
+                              ys10[:T_REF].double(), method="sequential"))
+    rel10 = check_ref("G T=5000", llpt.loglik(q10, None, y10[:T_REF]), ref10)
+    ref10a = float(llpt.loglik(angle_ukf("cpu", torch.float64), None,
+                               ya[:T_TWIN], method="sequential"))
+    rel10a = check_ref("G angle hook T=2000", llpt.loglik(ang10, None, yat),
+                       ref10a, tol=1e-3)
+    comp10 = ukf_scan._ukf_programs(q10, 0, dev)
+    n_f, n_g = (len(p.instrs) for _, p in comp10.progs[:2])
+    stats["ukf_scan"] = dict(
+        max_abs_err=err10, T=T_SCAN, plain_T=T_TWIN, library_ms=None,
+        ms=cuda_ms(lambda: ukf_scan.ukf_scan(q10, y10), 3),
+        plain_ms=cuda_ms(lambda: ukf_scan.ukf_scan_plain(q10, y10t), 1),
+        # ys; x0, P0, R1, R2; ll
+        **bound(4 * (T_SCAN * 2 + 15),
+                T_SCAN * per_step_ops_ukf(2, 2, n_f, n_g)))
+    log("G ukf_scan", f"quadtank T={T_SCAN}: ll {ll10}; CV (forced) "
+        f"{ll10cv}; angle hook T=4096 {ll10a}; T={T_REF} rel {rel10:.3g} "
+        f"vs f64 sequential, angle hook T={T_TWIN} rel {rel10a:.3g} (1e-3, "
+        f"bench.py:229); launches {path10}; {stats['ukf_scan']}")
+    report("G", UKF, lambda: llpt.loglik(q10, None, y10), *ts10)
+    log("G", f"CV UKF: tracing {ts10cv[0]} s, build {ts10cv[1]} s; angle "
+        f"hook UKF: tracing {ts10a[0]} s, build {ts10a[1]} s")
+    k0 = UKF.launches
+    cv_ms = host_median_ms(lambda: llpt.ukf_loglik_fused(ukf8, y8,
+                                                         force_kernel=True))
+    log("G", f"CV UKF forced, median of 5: {cv_ms:.3f} ms, "
+        f"{(UKF.launches - k0) / 6:g} launch(es) of G a call ({smi})")
 
 
 def main():
@@ -181,13 +534,15 @@ def main():
     from lowlevelparticlefilters_jl_tpu_torch import convert
     from lowlevelparticlefilters_jl_tpu_torch.filters import bank as tbank
     from lowlevelparticlefilters_jl_tpu_torch.kernels import (
-        _lib, assoc_scan, bank_scan, noise, pf_scan, resample_route)
+        _lib, assoc_scan, bank_scan, noise, pf_scan, resample_route,
+        ukf_scan)
     from lowlevelparticlefilters_jl_tpu_torch.ops import resample as ors
     from lowlevelparticlefilters_jl_tpu_torch.parallel import temporal
 
     dev = torch.device("cuda")
     kernels = [pf_scan.PF_LOGLIK_SCAN, resample_route.SYSTEMATIC_GATHER,
                noise.NORMAL, noise.ADD_GAUSSIAN_NOISE, bank_scan.BANK_LOGLIK,
+               ukf_scan.UKF_SCAN, ukf_scan.AKF_SCAN, ukf_scan.EKF_SCAN,
                assoc_scan.ASSOC_SCAN]
     stats = {k.name: {} for k in kernels}
     launches = {}
@@ -667,6 +1022,9 @@ def main():
         f"{rel6m:.3g}; one call {dt6m * 1e3:.1f} ms; launches {par_path}")
     launches["bank_loglik"] = bank_path["bank_loglik"]
     launches["assoc_scan"] = bank_path["assoc_scan"] + par_path["assoc_scan"]
+
+
+    whole_scan_phases(dev, kernels, stats, launches, smi)
 
     print(json.dumps({"kernels": [dict(
         name=k.name, route="cuda", source=k.source, replaces=k.replaces,

@@ -3,13 +3,15 @@
 The JAX package ``lowlevelparticlefilters_jl_tpu`` is the reference; this
 package mirrors its layout file for file and is held against it by the
 ``tests/test_torch_*.py`` parity tests.  It covers the Kalman filter
-(sequential and temporal-parallel), the shared-Riccati KF bank and the
-bootstrap particle filter's log-likelihood.  On CUDA tensors
-``pf.loglik`` runs the whole recursion as one hand-written kernel
-(kernels/pf_scan.py), a long KF trajectory runs the associative scan
-kernel (kernels/assoc_scan.py), and ``kf_bank_loglik`` runs the bank
-kernel (kernels/bank_scan.py); the CUDA sources in ``csrc/`` are built
-with ``nvcc`` at first use.
+(sequential and temporal-parallel), the UKF and EKF (and IEKF), the
+measurement models, the shared-Riccati KF bank and the bootstrap particle
+filter's log-likelihood.  On CUDA tensors ``pf.loglik`` runs the whole
+recursion as one hand-written kernel (kernels/pf_scan.py), a long KF
+trajectory runs the associative scan kernel (kernels/assoc_scan.py),
+``kf_bank_loglik`` runs the bank kernel (kernels/bank_scan.py), and the
+UKF, EKF and ``KalmanFilter.loglik_fused`` run the whole-scan kernels
+G, H and I (kernels/ukf_scan.py), with the user callbacks compiled in;
+the CUDA sources in ``csrc/`` are built with ``nvcc`` at first use.
 
 Quick start::
 
@@ -31,7 +33,7 @@ from .ops.logsumexp import (
     expnormalize,
     effective_particles,
 )
-from .ops.linalg import symmetrize
+from .ops.linalg import blkdiag, symmetrize
 from .ops.mvnormal import MvNormal, as_mvnormal, mvnormal_logpdf
 from .ops.matrices import TimeVarying, resolve_mat
 from .ops.resample import (
@@ -46,6 +48,31 @@ from .filters.base import (AbstractFilter, AbstractKalmanFilter,
                            AbstractParticleFilter)
 from .filters.kalman import KalmanFilter, KFState, KalmanInfo
 from .filters.particle import ParticleFilter, PFState
+from .filters.ukf import UnscentedKalmanFilter, make_ukf
+from .filters.ekf import ExtendedKalmanFilter, make_ekf, make_iekf
+from .models.measurement_models import (
+    AbstractMeasurementModel,
+    LinearMeasurementModel,
+    EKFMeasurementModel,
+    IEKFMeasurementModel,
+    UKFMeasurementModel,
+    CompositeMeasurementModel,
+)
+from .models.sigmapoints import (
+    UTParams,
+    WikiParams,
+    MerweParams,
+    TrivialParams,
+    UKFWeights,
+    ukf_weights,
+    sigmapoints,
+    ut_mean,
+    ut_cov,
+    ut_cross_cov,
+)
+from .kernels.ukf_scan import (
+    ukf_loglik_fused, ekf_loglik_fused,
+    ukf_forward_trajectory_fused, ekf_forward_trajectory_fused)
 from .trajectory import (
     forward_trajectory,
     loglik,
@@ -62,3 +89,6 @@ from .filters.bank import (KFBankSolution, kf_bank_admissible,
 from .parallel.temporal import (parallel_forward_trajectory,
                                 parallel_rts_smooth)
 from .parallel.bank import bank_forward_trajectory, bank_loglik
+
+# naming alias for users arriving from the reference package
+from .filters.ekf import make_iekf as IteratedExtendedKalmanFilter  # noqa

@@ -1,9 +1,10 @@
 """Build the port's filters from NumPy parameters.
 
 A model defined in the JAX package carries across as
-``np.asarray(...)`` of its arrays; nothing here imports JAX.  A particle
-filter's callbacks are code, not parameters, and are supplied in
-PyTorch.  Tensors go to the card unless ``device`` says otherwise, and
+``np.asarray(...)`` of its arrays; nothing here imports JAX.  Callbacks
+(a particle filter's, a UKF's or EKF's dynamics and measurement, the UT
+hooks) are code, not parameters: they cannot be converted and are
+supplied in PyTorch by the caller.  Tensors go to the card unless ``device`` says otherwise, and
 without a card a call that names no device raises.
 """
 from __future__ import annotations
@@ -13,8 +14,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .filters.ekf import ExtendedKalmanFilter, make_ekf
 from .filters.kalman import KalmanFilter
 from .filters.particle import ParticleFilter
+from .filters.ukf import UnscentedKalmanFilter, make_ukf
 from .kernels._lib import default_device
 from .ops.mvnormal import MvNormal
 
@@ -70,6 +73,38 @@ def particle_filter_from_numpy(N: int, dynamics: Callable,
         resample_threshold=resample_threshold,
         resampling_strategy=resampling_strategy, Ts=Ts,
         noise_backend=noise_backend)
+
+
+def ukf_from_numpy(dynamics: Callable, measurement: Callable, R1, R2,
+                   d0_mean=None, d0_cov=None, *, weight_params=None,
+                   Ts: float = 1.0, nu: int = 0, dtype=torch.float32,
+                   device=None, **hooks) -> UnscentedKalmanFilter:
+    """An additive-noise UKF from the JAX filter's arrays (R1, R2, the
+    initial density; d0 defaults to N(0, R1)), its weight scheme and Ts,
+    around the torch callbacks ``dynamics``/``measurement``.  ``hooks``
+    (``innovation``, ``measurement_mean``, ``state_mean``, ...) pass to
+    :func:`make_ukf` as they are."""
+    from .models.sigmapoints import TrivialParams
+
+    device = default_device(device)
+    d0 = None if d0_cov is None else _density(d0_mean, d0_cov, dtype, device)
+    return make_ukf(dynamics, measurement, _t(R1, dtype, device),
+                    _t(R2, dtype, device), d0, nu=nu, Ts=Ts,
+                    weight_params=weight_params or TrivialParams(), **hooks)
+
+
+def ekf_from_numpy(dynamics: Callable, measurement: Callable, R1, R2,
+                   d0_mean=None, d0_cov=None, *, alpha: float = 1.0,
+                   Ts: float = 1.0, nu: int = 0, Ajac=None, Cjac=None,
+                   dtype=torch.float32, device=None) -> ExtendedKalmanFilter:
+    """An EKF from the JAX filter's arrays (R1, R2, the initial density),
+    alpha and Ts, around the torch callbacks (and optional Jacobian
+    callbacks ``Ajac``/``Cjac``)."""
+    device = default_device(device)
+    d0 = None if d0_cov is None else _density(d0_mean, d0_cov, dtype, device)
+    return make_ekf(dynamics, measurement, _t(R1, dtype, device),
+                    _t(R2, dtype, device), d0, nu=nu, Ts=Ts, alpha=alpha,
+                    Ajac=Ajac, Cjac=Cjac)
 
 
 def linear_callbacks(A, B, C, dtype=torch.float32, device=None):

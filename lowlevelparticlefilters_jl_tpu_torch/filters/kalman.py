@@ -1,9 +1,9 @@
 """Linear Kalman filter (counterpart of ``filters/kalman.py``).
 
 Same predict/correct algebra as the JAX package (α-forgetting, the R12
-cross-covariance branch, the D feedthrough).  The fused ``loglik_fused``
-delegation of the JAX package reaches the ``ukf_scan`` kernels, which
-are not ported yet; ``loglik`` runs the sequential recursion.
+cross-covariance branch, the D feedthrough).  ``loglik_fused`` and
+``forward_trajectory_fused`` delegate to an EKF with constant Jacobians,
+which the whole-scan kernel H runs (kernels/ukf_scan.py).
 """
 from __future__ import annotations
 
@@ -166,6 +166,53 @@ class KalmanFilter(AbstractKalmanFilter):
         R12 = resolve_mat(self.R12, state.x, u, p, t, Ts=self.Ts)
         x, R, info = kf_correct(state.x, state.R, Ct, Dt, u, y, R2, R12)
         return KFState(x=x, R=R, t=state.t), info
+
+    def _fused_delegate(self):
+        """An EKF with the constant system matrices as callbacks and
+        constant Jacobians, for the whole-scan kernels; None when out of
+        scope (time-stacked matrices, R12, a non-scalar alpha)."""
+        from .ekf import make_ekf
+
+        const = all(M is None or isinstance(M, torch.Tensor) and M.ndim <= 2
+                    for M in (self.A, self.B, self.C, self.D, self.R1,
+                              self.R2))
+        if not const or self.R12 is not None or not isinstance(
+                self.alpha, (int, float)):
+            return None
+        A, B, C, D = self.A, self.B, self.C, self.D
+
+        def dyn(x, u, p, t):
+            xn = A @ x
+            if B is not None and u is not None and u.shape[-1]:
+                xn = xn + B @ u
+            return xn
+
+        def meas(x, u, p, t):
+            y = C @ x
+            if D is not None and u is not None and u.shape[-1]:
+                y = y + D @ u
+            return y
+
+        return make_ekf(dyn, meas, self.R1, self.R2, d0=self.d0,
+                        nu=max(self.nu, 0), ny=self.ny, Ts=self.Ts,
+                        alpha=self.alpha, Ajac=lambda x, u, p, t: A,
+                        Cjac=lambda x, u, p, t: C)
+
+    def loglik_fused(self, ys, us=None):
+        """Whole-trajectory log-likelihood through the delegated EKF's
+        whole-scan kernel (kernel H: its Jacobians are constant); the
+        sequential recursion when the delegation is out of scope.  The
+        delegate and its admission are kept per filter."""
+        from ..kernels.ukf_scan import ekf_loglik_fused
+
+        return ekf_loglik_fused(self, ys, us)
+
+    def forward_trajectory_fused(self, us, ys):
+        """Full :class:`KalmanFilteringSolution` through the same
+        delegation."""
+        from ..kernels.ukf_scan import ekf_forward_trajectory_fused
+
+        return ekf_forward_trajectory_fused(self, us, ys)
 
     def measurement_fn(self):
         """Out-of-place measurement function ``g(x, u, p, t)``."""

@@ -8,6 +8,12 @@ the sources and flags, so an edited source rebuilds and an unchanged one
 loads at once.  Nothing here runs at import time: the
 package imports on machines with no ``nvcc`` and no card.
 
+The second build path, :func:`build_generated`, serves the whole-scan
+kernels G and I, whose user callbacks are compiled in: a source
+generated per filter (kernels/ukf_scan.py) includes the kernel template
+``csrc/ukf_scan.cuh`` and becomes its own small library, keyed by a hash
+of the generated source, the headers and the flags.
+
 Every C entry point returns a ``cudaError_t``; :func:`check` raises on a
 non-zero code, so a refused launch is an error and never a silent no-op.
 """
@@ -44,7 +50,15 @@ _SIGNATURES = {
     "llpf_assoc_scan": [_P, _P, _P, _I64, _I64, _I, _I, _P],
     "llpf_bank_loglik": [_P, _I, _P, _P, _I64, _P, _P, _I64, _I, _I, _I, _I,
                          _P],
+    "llpf_akf_scan": [_P] * 9 + [_F, _I, _I, _I] + [_P] * 9,
 }
+# entry points of the callback-specialised modules (build_generated)
+_GEN_SIGNATURES = {
+    "llpf_ekf_scan": [_P] * 7 + [_F, _F, _I] + [_P] * 9,
+    "llpf_ukf_scan": [_P] * 7 + [_F] * 6 + [_I] + [_P] * 9,
+}
+# headers the generated sources include
+_GEN_HEADERS = ("ukf_scan.cuh", "dual.cuh", "scan_common.cuh")
 
 
 @dataclass
@@ -189,3 +203,50 @@ def require_cuda_f32(name: str, t, shape=None) -> None:
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+#: callback-specialised libraries built by this process (compiled, not
+#: found on disk); the seconds nvcc took, last first
+GEN_BUILDS: list = []
+
+
+def build_generated(source: str) -> ctypes.CDLL:
+    """The library of one generated source (see module doc), built with
+    one ``nvcc`` at first use and loaded; a source seen before loads from
+    ``_build/`` or from this process's cache without compiling."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(source.encode())
+    for name in _GEN_HEADERS:
+        h.update((SRC_DIR / name).read_bytes())
+    tag = h.hexdigest()[:16]
+    cache = _STATE.setdefault("gen", {})
+    if tag in cache:
+        return cache[tag]
+    out = BUILD_DIR / f"libllpf_cb_{tag}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        pid = os.getpid()
+        src = BUILD_DIR / f"cb_{tag}.{pid}.cu"
+        src.write_text(source)
+        tmp = out.with_suffix(f".{pid}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-shared", "-o",
+               str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        src.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+        GEN_BUILDS.insert(0, (time.perf_counter() - t0, proc.stdout
+                              + proc.stderr))
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _GEN_SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    cache[tag] = lib
+    return lib

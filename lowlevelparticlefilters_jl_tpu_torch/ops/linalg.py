@@ -110,6 +110,20 @@ def rdiv_chol(B: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     return chol_solve(L, B.transpose(-1, -2)).transpose(-1, -2)
 
 
+def blkdiag(*mats: torch.Tensor) -> torch.Tensor:
+    """Block-diagonal concatenation over the trailing two axes (the
+    augmented sigma points' joint covariance)."""
+    n = sum(m.shape[-1] for m in mats)
+    dtype = torch.result_type(*mats) if len(mats) > 1 else mats[0].dtype
+    out = mats[0].new_zeros((*mats[0].shape[:-2], n, n), dtype=dtype)
+    i = 0
+    for m in mats:
+        k = m.shape[-1]
+        out[..., i:i + k, i:i + k] = m
+        i += k
+    return out
+
+
 def logdet_chol(L: torch.Tensor) -> torch.Tensor:
     """log det(L L^T) = 2 sum(log diag L)."""
     return 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)

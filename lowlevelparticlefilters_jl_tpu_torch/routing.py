@@ -4,18 +4,18 @@ Every verb takes ``method=``:
 
 - ``"auto"`` (default): the fastest admitted path.  On CUDA tensors a
   particle filter's ``loglik`` runs kernel A, the whole recursion in one
-  launch (kernels/pf_scan.py), and a Kalman filter's ``loglik`` and
-  ``forward_trajectory`` take the temporal-parallel path from
-  ``T_PARALLEL`` steps on (kernel K, kernels/assoc_scan.py).  On the CPU
-  ``auto`` is the sequential loop.
+  launch (kernels/pf_scan.py); a Kalman filter, and a UKF or EKF whose
+  callbacks are affine in x, take the temporal-parallel path from
+  ``T_PARALLEL`` steps on (kernel K, kernels/assoc_scan.py); everything
+  else that is admitted takes its whole-scan kernel (G, H or I,
+  kernels/ukf_scan.py).  On the CPU ``auto`` is the sequential loop.
 - ``"sequential"``: the plain step loop, always.  It is the route that
   autograd differentiates; the kernels are forward-only.
-- ``"fused"``: kernel A when admitted — on CPU tensors its plain twin.
-  The Kalman filter's fused kernel is not ported, so its ``"fused"`` is
-  sequential.
+- ``"fused"``: the whole-scan kernel when admitted (kernel A, or G, H, I)
+  — on CPU tensors its plain twin.
 - ``"parallel"``: the temporal-parallel path whenever the Kalman filter
-  is admitted, on any device (kernel K on CUDA float32, the Hillis–Steele
-  scan otherwise).
+  (or an affine UKF/EKF's equivalent KF) is admitted, on any device
+  (kernel K on CUDA float32, the Hillis–Steele scan otherwise).
 
 Under ``torch.func`` transforms (``vmap``, ``grad``, ``jvp``) every verb
 takes the sequential route: a kernel reached through ``ctypes`` sees
@@ -129,30 +129,101 @@ def _want_parallel(method: str, y, T: int) -> bool:
     return method == "auto" and y.is_cuda and T >= T_PARALLEL
 
 
+def _want_fused(method: str, y) -> bool:
+    return method == "fused" or (method == "auto" and y.is_cuda)
+
+
+def _affine_equiv_kf(f, u, y):
+    """The exactly-equivalent plain KF of an affine UKF/EKF, for the
+    temporal-parallel path: constant Jacobians (A, C) from the verdict of
+    ``kernels/ukf_scan.py::affinity`` (static walk and probes, kept per
+    filter), the callbacks' offsets as drive sequences fed through B = I
+    and subtracted from y.  Returns ``(kf_eq, cs, y_eff)`` or None when
+    out of scope."""
+    from .filters.ekf import ExtendedKalmanFilter
+    from .filters.kalman import KalmanFilter
+    from .filters.ukf import UnscentedKalmanFilter
+    from .kernels import ukf_scan as k
+    from .ops.mvnormal import MvNormal
+
+    if (type(f) not in (UnscentedKalmanFilter, ExtendedKalmanFilter)
+            or u is not None and u.ndim != 2):
+        return None
+    v = k.affinity(f, 0 if u is None else u.shape[-1])
+    if v.AC is None or float(v.ekf.alpha) != 1.0:
+        return None
+    ekf = v.ekf
+    A, C = (M.to(y.device) for M in v.AC)
+    y32 = y.to(torch.float32)
+    cs, ds = k.drives(ekf, u, y.shape[0], y.device)
+    f32 = lambda t: t.to(device=y.device, dtype=torch.float32)  # noqa: E731
+    kf_eq = KalmanFilter(
+        A, torch.eye(ekf.nx, dtype=torch.float32, device=y.device), C, 0,
+        f32(ekf.R1), f32(ekf.measurement_model.R2),
+        d0=MvNormal(f32(ekf.d0.mean), f32(ekf.d0.cov)), Ts=ekf.Ts,
+        check=False)
+    return kf_eq, cs, y32 - ds
+
+
 def _route_kalman(verb, f, u, y, p, method):
-    """The temporal-parallel solution when wanted and admitted, else None
-    (and the sequential route recorded)."""
+    """The solution (``verb == "forward_trajectory"``) or ll of a Kalman-
+    family filter through the temporal-parallel path or a whole-scan
+    kernel when wanted and admitted, else None (and the sequential route
+    recorded)."""
+    from .filters.ekf import ExtendedKalmanFilter
+    from .filters.kalman import KalmanFilter
+    from .filters.ukf import UnscentedKalmanFilter
+    from .kernels import ukf_scan as k
     from .parallel.temporal import parallel_forward_trajectory
 
     _check_method(method)
+    traj = verb == "forward_trajectory"
     T = y.shape[0]
-    if (p is None and _want_parallel(method, y, T) and _kf_parallel_ok(f, T)
-            and not _under_batch_trace(f, u, y)):
-        sol = parallel_forward_trajectory(f, u, y)
-        _record(verb, sol.route)
-        return sol
-    _record(verb, "sequential")
-    return None
+    if method == "sequential" or p is not None or _under_batch_trace(f, u, y):
+        _record(verb, "sequential")
+        return None
+    if type(f) is KalmanFilter:
+        if _want_parallel(method, y, T) and _kf_parallel_ok(f, T):
+            sol = parallel_forward_trajectory(f, u, y)
+            _record(verb, sol.route)
+            return sol if traj else sol.ll
+        out = k._ekf_fused(f, y, u, want_traj=traj, allow_cpu=True) \
+            if _want_fused(method, y) else None
+    else:
+        if _want_parallel(method, y, T):
+            eq = _affine_equiv_kf(f, u, y)
+            if eq is not None:
+                kf_eq, cs, y_eff = eq
+                sol = parallel_forward_trajectory(kf_eq, cs, y_eff)
+                _record(verb, sol.route)
+                if not traj:
+                    return sol.ll
+                from .trajectory import _as_u_seq
+
+                y32 = y.to(torch.float32)
+                return sol.replace(u=_as_u_seq(u, T, y32.dtype, y.device),
+                                   y=y32)
+        out = None
+        if _want_fused(method, y):
+            if type(f) is UnscentedKalmanFilter:
+                out = k._ukf_fused(f, y, u, want_traj=traj, allow_cpu=True,
+                                   pin_g=False)
+            elif type(f) is ExtendedKalmanFilter:
+                out = k._ekf_fused(f, y, u, want_traj=traj, allow_cpu=True)
+    if out is None:
+        _record(verb, "sequential")
+    return out
 
 
 def route_kalman_loglik(f, u, y, p, method: str):
-    """The KF log-likelihood through the temporal-parallel path, or None
-    for the sequential recursion."""
-    sol = _route_kalman("loglik", f, u, y, p, method)
-    return None if sol is None else sol.ll
+    """The log-likelihood of a KF, UKF or EKF through the temporal-
+    parallel path or a whole-scan kernel, or None for the sequential
+    recursion."""
+    return _route_kalman("loglik", f, u, y, p, method)
 
 
 def route_forward_trajectory(f, u, y, p, method: str):
-    """The KF solution through the temporal-parallel path, or None for
-    the sequential recursion."""
+    """The filtering solution of a KF, UKF or EKF through the temporal-
+    parallel path or a whole-scan kernel, or None for the sequential
+    recursion."""
     return _route_kalman("forward_trajectory", f, u, y, p, method)

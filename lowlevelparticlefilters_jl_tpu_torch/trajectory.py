@@ -27,11 +27,12 @@ def _as_u_seq(u, T: int, dtype, device=None) -> torch.Tensor:
 def forward_trajectory(f, u, y, p=None, *, method: str = "auto", **kwargs):
     """Run a filter over inputs ``u[T, nu]`` and measurements ``y[T, ny]``.
 
-    Kalman filters return a :class:`KalmanFilteringSolution`: through the
-    temporal-parallel path (``parallel/temporal.py``, kernel K on CUDA
-    float32) when ``routing`` admits it — ``method="auto"`` on CUDA
-    tensors from ``T_PARALLEL`` steps, ``"parallel"`` always — else the
-    sequential recursion.  Particle filters return a
+    Kalman-family filters (KF, UKF, EKF) return a
+    :class:`KalmanFilteringSolution`: through the temporal-parallel path
+    (``parallel/temporal.py``, kernel K on CUDA float32) or a whole-scan
+    kernel (kernels/ukf_scan.py) when ``routing`` admits it — see
+    ``routing.py`` for ``method=`` — else the sequential recursion.
+    Particle filters return a
     ``ParticleFilteringSolution`` from their own method.
     ``last_route("forward_trajectory")`` names the path taken.
     """
@@ -77,10 +78,10 @@ def kalman_forward_trajectory(kf, u, y, p=None) -> KalmanFilteringSolution:
 
 def loglik(f, u, y, p=None, method: str = "auto", **kwargs):
     """Total log-likelihood of the data.  Particle filters route through
-    ``routing.route_pf_loglik`` (kernel A on CUDA tensors); Kalman
+    ``routing.route_pf_loglik`` (kernel A on CUDA tensors); Kalman-family
     filters through ``routing.route_kalman_loglik`` (the temporal-parallel
-    path, as for :func:`forward_trajectory`) or the sequential
-    recursion."""
+    path or a whole-scan kernel, as for :func:`forward_trajectory`) or the
+    sequential recursion."""
     if hasattr(f, "loglik"):
         return f.loglik(u, y, p, method=method, **kwargs)
     from .routing import route_kalman_loglik

@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of the port's KF bank and temporal-parallel calls goes.
+"""Where the time of the port's PF, KF-bank, temporal-parallel and
+whole-scan UKF/EKF calls goes.
 
-    python3 scripts/torch_stage_breakdown.py
+    python3 scripts/torch_stage_breakdown.py [pf] [bank] [parallel] [scan]
 
-Needs one CUDA card.  Runs, on the benchmark's 2-state model in f32:
+Needs one CUDA card.  Runs the named sections (all without arguments),
+in f32:
 
-- ``pf.loglik`` at N = 1e5 and 1e6, T = 1000 (bench.py:389-420),
-- ``kf_bank_loglik`` at B = 1024 and 8192, T = 200 (bench.py:423-469),
-- ``loglik`` (temporal-parallel) at T = 1e5 (bench.py:724-736),
+- ``pf``: ``pf.loglik`` at N = 1e5 and 1e6, T = 1000 (bench.py:389-420),
+- ``bank``: ``kf_bank_loglik`` at B = 1024 and 8192, T = 200
+  (bench.py:423-469),
+- ``parallel``: ``loglik`` (temporal-parallel) at T = 1e5
+  (bench.py:724-736), all three on the benchmark's 2-state model;
+- ``scan``: the whole-scan kernels at T = 5e4: ``kf.loglik_fused`` on the
+  4-state CV model (kernel H), ``loglik`` of the nonlinear EKF (kernel I)
+  and of the quadtank UKF (kernel G), stages: the callbacks' trace and
+  library build (once, at first use), the admission probes, the drives,
+  the constants, the kernel with its wrapper;
 
 first as whole calls, then stage by stage through the same internal
 functions in the verb's order.  Each time is the median of 7 (host
@@ -64,11 +73,106 @@ def device_profile(fn, reps=3):
     own = {}
     for e in kern:
         m = re.search(r"(reduce_kernel|apply_kernel|bank_loglik_kernel|"
-                      r"pf_scan_kernel)", e.name)
+                      r"pf_scan_kernel|akf_scan_kernel|ekf_scan_kernel|"
+                      r"ukf_scan_kernel)", e.name)
         if m:
             own[m.group(0)] = (own.get(m.group(0), 0.0)
                                + e.time_range.elapsed_us() / 1e3 / reps)
     return busy_us / 1e3 / reps, len(kern) / reps, own
+
+
+def whole_scan_section(dev, line):
+    """Stages of the whole-scan calls (kernels H, I, G) at T = 5e4."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch import convert, routing
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import ukf_scan as k
+
+    T = 50_000
+    g = torch.Generator().manual_seed(1)
+    cv_a = [[1, 0, 0.1, 0], [0, 1, 0, 0.1], [0, 0, 1, 0], [0, 0, 0, 1]]
+    cv_c = [[1, 0, 0, 0], [0, 1, 0, 0]]
+    A = torch.tensor(cv_a, dtype=torch.float32, device=dev)
+    C = torch.tensor(cv_c, dtype=torch.float32, device=dev)
+    y = torch.randn(T, 2, generator=g).to(dev)
+    kf = convert.kalman_filter_from_numpy(cv_a, None, cv_c, 0,
+                                          [[0.1 * (i == j) for j in range(4)]
+                                           for i in range(4)],
+                                          [[1.0, 0.0], [0.0, 1.0]],
+                                          dtype=torch.float32, device=dev)
+    ekf = llpt.make_ekf(lambda x, u, p, t: A @ x + 0.01 * torch.sin(x),
+                        lambda x, u, p, t: C @ x, kf.R1, kf.R2,
+                        d0=llpt.MvNormal(torch.zeros(4, device=dev),
+                                         0.5 * kf.R1 / 0.1), nu=0, ny=2)
+
+    def g1(x):
+        return torch.sqrt(torch.abs(x) + 0.1)
+
+    ukf = llpt.make_ukf(
+        lambda x, u, p, t: x + 0.1 * torch.stack(
+            [-g1(x[0]) + 0.5 * g1(x[1]), -0.5 * g1(x[1]) + 0.1]),
+        lambda x, u, p, t: x, 1e-3 * torch.eye(2, device=dev),
+        1e-2 * torch.eye(2, device=dev), ny=2, nu=0,
+        d0=llpt.MvNormal(torch.ones(2, device=dev),
+                         0.1 * torch.eye(2, device=dev)))
+    yq = 1.0 + 0.1 * y
+
+    def once(what, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        line(f"{what} (first use, once)", (time.perf_counter() - t0) * 1e3)
+
+    once(f"scan T={T} EKF trace (make_fx + lowering)",
+         lambda: k._ekf_programs(ekf, 0, dev))
+    once(f"scan T={T} EKF callback library build",
+         lambda: k._ekf_programs(ekf, 0, dev).library())
+    once(f"scan T={T} UKF trace (make_fx + lowering)",
+         lambda: k._ukf_programs(ukf, 0, dev))
+    once(f"scan T={T} UKF callback library build",
+         lambda: k._ukf_programs(ukf, 0, dev).library())
+    for tag, call in (
+            (f"H kf.loglik_fused T={T}", lambda: kf.loglik_fused(y)),
+            (f"I EKF loglik T={T}", lambda: llpt.loglik(ekf, None, y)),
+            (f"G UKF loglik T={T}", lambda: llpt.loglik(ukf, None, yq))):
+        line(f"{tag} whole call", median_ms(call))
+        busy, n, own = device_profile(call)
+        print(f"{tag} device busy {busy} ms/call, {n} kernel launches/call;"
+              f" kernels: {own}", flush=True)
+    for tag, f in (("H", kf), ("I", ekf), ("G", ukf)):
+        fresh = f.replace()  # the same filter, with no verdict kept yet
+        once(f"scan T={T} {tag} admission verdict (static walk + probes)",
+             lambda: k.affinity(fresh, 0))
+    v = k.affinity(kf, 0)
+    st = {}
+
+    def h_drives():
+        st["d"] = k.live_drives(*k.drives(v.ekf, None, T, dev))
+
+    def h_kernel():
+        k.akf_scan(y, *st["d"], *k._gaussian_inputs(v.ekf, dev), *v.AC, 1.0)
+
+    comp_e = k._ekf_programs(ekf, 0, dev)
+    comp_u = k._ukf_programs(ukf, 0, dev)
+    for name, fn in (
+            ("H cached verdict", lambda: k.affinity(kf, 0)),
+            ("H drives (two vmapped callbacks, zero check)", h_drives),
+            ("H kernel incl. wrapper", h_kernel),
+            ("I cached verdict", lambda: k.affinity(ekf, 0)),
+            ("I parallel-route check (_affine_equiv_kf)",
+             lambda: routing._affine_equiv_kf(ekf, None, y)),
+            ("I cached programs and constants",
+             lambda: k._ekf_programs(ekf, 0, dev).consts(dev)),
+            ("I kernel incl. wrapper", lambda: k.ekf_scan(ekf, y)),
+            ("G cached verdict", lambda: k.affinity(ukf, 0)),
+            ("G cached programs and constants",
+             lambda: k._ukf_programs(ukf, 0, dev).consts(dev)),
+            ("G kernel incl. wrapper", lambda: k.ukf_scan(ukf, yq))):
+        line(f"scan T={T} {name}", median_ms(fn))
+    print(f"scan H drives read: {[d is not None for d in st['d']]}",
+          flush=True)
+    sizes = [[len(p.instrs) for _, p in c.progs] for c in (comp_e, comp_u)]
+    print(f"scan callback programs (instructions): I {sizes[0]}, G "
+          f"{sizes[1]}", flush=True)
 
 
 def main():
@@ -84,6 +188,7 @@ def main():
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    sections = set(sys.argv[1:]) or {"pf", "bank", "parallel", "scan"}
     kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2,
                                           dtype=torch.float32, device=dev)
     g = torch.Generator().manual_seed(0)
@@ -99,7 +204,7 @@ def main():
     u = torch.full((T, 1), 0.3, device=dev)
     y = (0.3 * torch.randn(T, 2, generator=g)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for N in (100_000, 1_000_000):
+    for N in (100_000, 1_000_000) if "pf" in sections else ():
         pf = convert.particle_filter_from_numpy(
             N, *convert.linear_callbacks(A, B, C, device=dev), R1, R2, R1,
             resample_threshold=0.1, device=dev)
@@ -130,7 +235,7 @@ def main():
                          ("kernel A incl. wrapper", kernel_a)):
             line(f"{tag} {name}", median_ms(fn))
 
-    for Bk in (1024, 8192):
+    for Bk in (1024, 8192) if "bank" in sections else ():
         T = 200
         us = torch.full((Bk, T, 1), 0.3, device=dev)
         ys = torch.randn(Bk, T, 2, generator=g).to(dev)
@@ -189,10 +294,12 @@ def main():
     u = torch.full((T, 1), 0.3, device=dev)
     y = (0.3 * torch.randn(T, 2, generator=g)).to(dev)
     tag = f"parallel T={T}"
-    line(f"{tag} whole loglik", median_ms(lambda: llpt.loglik(kf, u, y)))
-    busy, n, own = device_profile(lambda: llpt.loglik(kf, u, y))
-    print(f"{tag} device busy {busy} ms/call, {n} kernel launches/call; "
-          f"kernel K: {own}", flush=True)
+    if "parallel" in sections:
+        line(f"{tag} whole loglik",
+             median_ms(lambda: llpt.loglik(kf, u, y)))
+        busy, n, own = device_profile(lambda: llpt.loglik(kf, u, y))
+        print(f"{tag} device busy {busy} ms/call, {n} kernel launches/call;"
+              f" kernel K: {own}", flush=True)
     st = {}
 
     def model():
@@ -218,7 +325,10 @@ def main():
                      ("plane elements (_filter_elements_p)", elements),
                      ("kernel K scan incl. stacking", scan),
                      ("whole _parallel_filter_core_p", core)):
-        line(f"{tag} {name}", median_ms(fn))
+        if "parallel" in sections:
+            line(f"{tag} {name}", median_ms(fn))
+    if "scan" in sections:
+        whole_scan_section(dev, line)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

@@ -15,7 +15,7 @@ import lowlevelparticlefilters_jl_tpu_torch as llpt
 from lowlevelparticlefilters_jl_tpu_torch import convert
 from lowlevelparticlefilters_jl_tpu_torch.filters import bank as tbank
 from lowlevelparticlefilters_jl_tpu_torch.kernels import (
-    assoc_scan, bank_scan, noise, pf_scan, resample_route)
+    assoc_scan, bank_scan, noise, pf_scan, resample_route, ukf_scan)
 from lowlevelparticlefilters_jl_tpu_torch.ops import resample as trs
 
 pytestmark = pytest.mark.cuda
@@ -216,3 +216,204 @@ def test_bank_and_parallel_routes_on_card(cuda_device):
                               ys[:3].cpu().double(), method="plane")
     torch.testing.assert_close(lls[:3].cpu().double(), ref, rtol=1e-4,
                                atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# Kernels G, H and I (kernels/ukf_scan.py)
+# ---------------------------------------------------------------------------
+
+DT = 0.1
+CV_A = np.array([[1, 0, DT, 0], [0, 1, 0, DT], [0, 0, 1, 0], [0, 0, 0, 1.0]])
+CV_B = np.array([[0, 0], [0, 0], [DT, 0], [0, DT]])
+CV_C = np.array([[1, 0, 0, 0], [0, 1, 0, 0.0]])
+
+
+def _close_solution(got, want, rtol=2e-4, atol=1e-5):
+    """ll within 1e-5 relative; the solution fields within the JAX tests'
+    trajectory bounds (tests/test_ukf_fused.py:139)."""
+    (llg, og), (llw, ow) = got, want
+    assert abs(float(llg) - float(llw)) <= 1e-5 * abs(float(llw))
+    for name, a, b in zip(ukf_scan._FIELDS, og or (), ow or ()):
+        torch.testing.assert_close(a.cpu(), b.cpu(), rtol=rtol, atol=atol,
+                                   msg=name)
+
+
+def _t32(a, dev):
+    return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+
+def _cv_filters(dev, nonlinear=False, user_jac=False):
+    A, Bm, C = (_t32(M, dev) for M in (CV_A, CV_B, CV_C))
+    R1, R2 = 0.1 * torch.eye(4, device=dev), torch.eye(2, device=dev)
+    d0 = llpt.MvNormal(torch.zeros(4, device=dev), 0.5 * torch.eye(4,
+                                                                  device=dev))
+    if nonlinear:
+        f = lambda x, u, p, t: A @ x + 0.01 * torch.sin(x)  # noqa: E731
+        jac = dict(Ajac=lambda x, u, p, t: A + 0.01 * torch.diag(torch.cos(x)),
+                   Cjac=lambda x, u, p, t: C) if user_jac else {}
+        return llpt.make_ekf(f, lambda x, u, p, t: C @ x, R1, R2, d0=d0,
+                             nu=0, ny=2, **jac)
+    return llpt.make_ekf(lambda x, u, p, t: A @ x + Bm @ u,
+                         lambda x, u, p, t: C @ x, R1, R2, d0=d0, nu=2, ny=2)
+
+
+def _quadtank(dev):
+    g1 = lambda x: torch.sqrt(torch.abs(x) + 0.1)  # noqa: E731
+
+    def dyn(x, u, p, t):
+        return x + 0.1 * torch.stack([-g1(x[0]) + 0.5 * g1(x[1]),
+                                      -0.5 * g1(x[1]) + 0.1])
+
+    return llpt.make_ukf(dyn, lambda x, u, p, t: x,
+                         1e-3 * torch.eye(2, device=dev),
+                         1e-2 * torch.eye(2, device=dev), ny=2, nu=0,
+                         d0=llpt.MvNormal(torch.ones(2, device=dev),
+                                          0.1 * torch.eye(2, device=dev)))
+
+
+def _angle_ukf(dev):
+    wrap = lambda a: torch.remainder(a + np.pi, 2 * np.pi) - np.pi  # noqa
+
+    def dyn(x, u, p, t):
+        return torch.stack([wrap(x[0] + 0.1 * x[1]), 0.98 * x[1]])
+
+    def smean(xs, W):
+        w = torch.cat([xs.new_full((1,), W.wm),
+                       xs.new_full((xs.shape[0] - 1,), W.wmi)])
+        return torch.stack([wrap((w * xs[:, 0]).sum()), (w * xs[:, 1]).sum()])
+
+    mm = llpt.UKFMeasurementModel(
+        measurement=lambda x, u, p, t: x[:1],
+        R2=0.05 * torch.eye(1, device=dev), ny=1,
+        innovation=lambda y, yh: wrap(y - yh))
+    return llpt.UnscentedKalmanFilter(
+        dynamics=dyn, measurement_model=mm,
+        R1=torch.diag(torch.tensor([0.01, 0.001], device=dev)), nu=0,
+        state_mean=smean)
+
+
+@pytest.mark.parametrize("T", [1, 130, 300])
+def test_akf_kernel_matches_twin(cuda_device, T):
+    """Kernel H against its twin (freeze included), ll and solution, with
+    both drives, one, and none (not read); T crosses the 128-step staging
+    chunks."""
+    ekf = _cv_filters(cuda_device)
+    g = torch.Generator().manual_seed(T)
+    ys = torch.randn(T, 2, generator=g).to(cuda_device)
+    us = 0.3 * torch.randn(T, 2, generator=g).to(cuda_device)
+    A, C = ukf_scan._const_affine_kf_params(ekf, ekf.measurement_model, 4)
+    cs, ds = ukf_scan.drives(ekf, us, T, cuda_device)
+    gauss = ukf_scan._gaussian_inputs(ekf, cuda_device)
+    for drives in ((cs, ds), (cs, None), (None, None)):
+        args = (ys, *drives, *gauss, A, C, 1.01)
+        for traj in (False, True):
+            before = ukf_scan.AKF_SCAN.launches
+            got = ukf_scan.akf_scan(*args, traj=traj)
+            assert ukf_scan.AKF_SCAN.launches == before + 1
+            _close_solution(got, ukf_scan.akf_scan_plain(*args, traj=traj))
+
+
+@pytest.mark.parametrize("user_jac", [False, True])
+def test_ekf_kernel_matches_twin(cuda_device, user_jac):
+    ekf = _cv_filters(cuda_device, nonlinear=True, user_jac=user_jac)
+    ys = torch.randn(300, 2, generator=torch.Generator().manual_seed(3)
+                     ).to(cuda_device)
+    for traj in (False, True):
+        before = ukf_scan.EKF_SCAN.launches
+        got = ukf_scan.ekf_scan(ekf, ys, traj=traj)
+        assert ukf_scan.EKF_SCAN.launches == before + 1
+        _close_solution(got, ukf_scan.ekf_scan_plain(ekf, ys, traj=traj))
+
+
+@pytest.mark.parametrize("case", ["quadtank", "cv", "angle"])
+def test_ukf_kernel_matches_twin(cuda_device, case):
+    if case == "quadtank":
+        ukf = _quadtank(cuda_device)
+        ys = 1.0 + 0.1 * torch.randn(300, 2, generator=torch.Generator()
+                                     .manual_seed(4)).to(cuda_device)
+    elif case == "cv":
+        A, C = _t32(CV_A, cuda_device), _t32(CV_C, cuda_device)
+        ukf = llpt.make_ukf(lambda x, u, p, t: A @ x,
+                            lambda x, u, p, t: C @ x,
+                            0.1 * torch.eye(4, device=cuda_device),
+                            torch.eye(2, device=cuda_device), ny=2, nu=0)
+        ys = torch.randn(300, 2, generator=torch.Generator().manual_seed(5)
+                         ).to(cuda_device)
+    else:
+        ukf = _angle_ukf(cuda_device)
+        ang = torch.cumsum(0.12 * torch.ones(300), 0) - 2.0
+        ys = (torch.remainder(ang + np.pi, 2 * np.pi) - np.pi)[:, None]
+        ys = (ys + 0.1 * torch.randn(300, 1, generator=torch.Generator()
+                                     .manual_seed(6))).to(cuda_device)
+    for traj in (False, True):
+        before = ukf_scan.UKF_SCAN.launches
+        got = ukf_scan.ukf_scan(ukf, ys, traj=traj)
+        assert ukf_scan.UKF_SCAN.launches == before + 1
+        _close_solution(got, ukf_scan.ukf_scan_plain(ukf, ys, traj=traj))
+
+
+def test_generated_kernel_second_call_builds_nothing(cuda_device):
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import _lib
+
+    ekf = _cv_filters(cuda_device, nonlinear=True)
+    ys = torch.randn(50, 2, generator=torch.Generator().manual_seed(7)
+                     ).to(cuda_device)
+    llpt.loglik(ekf, None, ys)
+    assert llpt.last_route() == "cuda_fused_scan"
+    builds, before = len(_lib.GEN_BUILDS), ukf_scan.EKF_SCAN.launches
+    llpt.loglik(ekf, None, ys)
+    llpt.forward_trajectory(ekf, None, ys)
+    assert len(_lib.GEN_BUILDS) == builds
+    assert ukf_scan.EKF_SCAN.launches == before + 2
+
+
+def test_refused_launch_raises(cuda_device):
+    """A launch the kernel refuses is an error, and so is an input that
+    requires grad."""
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import _lib
+
+    z = torch.zeros(4, device=cuda_device)
+    p = z.data_ptr()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _lib.check(_lib.library().lib.llpf_akf_scan(
+            p, p, p, p, p, p, p, p, p, 1.0, 1, 9, 1, p, *[None] * 7,
+            _lib.stream_ptr(z)), "akf_scan")
+    ekf = _cv_filters(cuda_device, nonlinear=True)
+    ys = torch.zeros(5, 2, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ukf_scan.ekf_scan(ekf, ys)
+
+
+def test_ukf_ekf_kf_routes_on_card(cuda_device):
+    """The main paths' routes: KF loglik_fused and method="fused" take H;
+    the affine CV UKF without force takes H, not G; the nonlinear EKF and
+    the quadtank UKF under "auto" take I and G; all within 1e-4 of the
+    float64 CPU sequential recursion."""
+    T = 400
+    ys = torch.randn(T, 2, generator=torch.Generator().manual_seed(8))
+    kf = convert.kalman_filter_from_numpy(CV_A, None, CV_C, 0,
+                                          0.1 * np.eye(4), np.eye(2),
+                                          dtype=torch.float32,
+                                          device=cuda_device)
+    kf64 = convert.kalman_filter_from_numpy(CV_A, None, CV_C, 0,
+                                            0.1 * np.eye(4), np.eye(2),
+                                            device="cpu")
+    ref = float(llpt.loglik(kf64, None, ys.double(), method="sequential"))
+    yc = ys.to(cuda_device)
+    counts = lambda: (ukf_scan.AKF_SCAN.launches,  # noqa: E731
+                      ukf_scan.UKF_SCAN.launches, ukf_scan.EKF_SCAN.launches)
+    h0, g0, i0 = counts()
+    for ll in (kf.loglik_fused(yc), llpt.loglik(kf, None, yc,
+                                                method="fused")):
+        assert llpt.last_route() == "cuda_fused_scan"
+        assert abs(float(ll) - ref) < 1e-4 * abs(ref)
+    A, C = _t32(CV_A, cuda_device), _t32(CV_C, cuda_device)
+    ukf = llpt.make_ukf(lambda x, u, p, t: A @ x, lambda x, u, p, t: C @ x,
+                        kf.R1, kf.R2, ny=2, nu=0)
+    assert abs(float(llpt.ukf_loglik_fused(ukf, yc)) - ref) < 1e-4 * abs(ref)
+    assert counts() == (h0 + 3, g0, i0)
+    llpt.loglik(_cv_filters(cuda_device, nonlinear=True), None, yc)
+    assert llpt.last_route() == "cuda_fused_scan"
+    llpt.loglik(_quadtank(cuda_device), None, 1.0 + 0.1 * yc)
+    assert llpt.last_route() == "cuda_fused_scan"
+    assert counts() == (h0 + 3, g0 + 1, i0 + 1)
