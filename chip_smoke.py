@@ -15,7 +15,8 @@ exits non-zero without its result lines):
    tensors: kernel A, PF ll within 1 % of the exact KF ll; median time of
    5 calls.  Then N = 1e6, T = 200 with the same check.
 5. unfused path: ``pf.forward_trajectory`` at N = 1e5, T = 100 with
-   ``noise_backend="kernel"`` (kernels B, C, D), within 1 % of the KF.
+   ``noise_backend="kernel"`` (kernels B, C, D), within 1 % of the KF;
+   a second seeded call bitwise equal to the first.
 6. the KF bank, ``kf_bank_loglik`` on the benchmark's bank model
    (bench.py:423-469): kernel F against its twin at B = 1024, T = 200;
    the route and one launch each of kernels K and F per call at B = 1024
@@ -41,10 +42,23 @@ exits non-zero without its result lines):
    Phases 8-10 print the median of 5 calls, the kernel's CUDA-event time,
    the launches per call and the seconds of tracing and of the callback
    library's build, apart from the calls.
+11. FFBS on the bench_ffbs model (bench.py:548-564): ``pf.smooth`` with
+   M = 1000 at N = 1000, T = 500 and at N = 65536, T = 24 (forward pass
+   through B, C, D; one launch of kernel J a call); the smoothed mean
+   within ``FFBS_RMS_Z`` RTS deviations of the float64 exact smoother; J
+   against its twin on a fixed forward solution, MAP columns equal and
+   the Philox draws within 0.1 %; J's CUDA-event time, median of 5 calls.
+12. the RTS family: ``smooth`` of the KF at T = 1e5
+   (``parallel_rts_smooth``), of the CV UKF, the quadtank UKF and the
+   ``A x + 0.01 sin x`` EKF at T = 5e4 (the iterated parallel smoothers on
+   kernel K), ``parallel_ukf_smooth(iters=4)`` as bench.py:695-721 and
+   the quadtank ``smooth(fused=True)`` (one launch of G) at T = 2000; each
+   against float64 CPU runs of the same function (T = 1e5, 5000, 2000),
+   with ``method="sequential"`` and ``smooth_mbf``; medians of 5.
 
 Launch counts are reset just before each path's run (phases 4-5, 6, 7,
-8, 9 and 10) and read just after it; every kernel of the path must have launched
-there.  The kernels line (with each kernel's bound: the larger of its
+8, 9, 10, 11 and 12) and read just after it; every kernel of the path
+must have launched there.  The kernels line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over 67 T/s) and the card's
 ``nvidia-smi`` line come before the last line,
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -256,6 +270,53 @@ def nvidia_smi_line():
     return out.splitlines()[0]
 
 
+def _eye(n, s, dt, d):
+    return s * torch.eye(n, dtype=dt, device=d)
+
+
+def nonlinear_ekf(d, dt, user_jac=False):
+    """``A x + 0.01 sin x`` on the CV model (tests/test_ukf_fused.py:88-98),
+    with the exact Jacobians as user callbacks when ``user_jac``."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+
+    A_ = torch.tensor(CV_A, dtype=dt, device=d)
+    C_ = torch.tensor(CV_C, dtype=dt, device=d)
+    jac = dict(Ajac=lambda x, u, p, t: A_ + 0.01 * torch.diag(
+        torch.cos(x)), Cjac=lambda x, u, p, t: C_) if user_jac else {}
+    return llpt.make_ekf(
+        lambda x, u, p, t: A_ @ x + 0.01 * torch.sin(x),
+        lambda x, u, p, t: C_ @ x, _eye(4, 0.1, dt, d), _eye(2, 1, dt, d),
+        d0=llpt.MvNormal(torch.zeros(4, dtype=dt, device=d),
+                         _eye(4, 0.5, dt, d)), nu=0, ny=2, **jac)
+
+
+def quadtank_ukf(d, dt):
+    """The quadtank UKF (bench.py:695-712)."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+
+    g1 = lambda x: torch.sqrt(torch.abs(x) + 0.1)  # noqa: E731
+
+    def dyn(x, u, p, t):
+        return x + 0.1 * torch.stack([-g1(x[0]) + 0.5 * g1(x[1]),
+                                      -0.5 * g1(x[1]) + 0.1])
+
+    return llpt.make_ukf(
+        dyn, lambda x, u, p, t: x, _eye(2, 1e-3, dt, d),
+        _eye(2, 1e-2, dt, d), ny=2, nu=0,
+        d0=llpt.MvNormal(torch.ones(2, dtype=dt, device=d),
+                         _eye(2, 0.1, dt, d)))
+
+
+def cv_ukf(d, dt):
+    """The affine CV UKF (bench.py:665-681)."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+
+    A_ = torch.tensor(CV_A, dtype=dt, device=d)
+    C_ = torch.tensor(CV_C, dtype=dt, device=d)
+    return llpt.make_ukf(lambda x, u, p, t: A_ @ x, lambda x, u, p, t: C_ @ x,
+                         _eye(4, 0.1, dt, d), _eye(2, 1.0, dt, d), ny=2, nu=0)
+
+
 def whole_scan_phases(dev, kernels, stats, launches, smi):
     """Phases 8-10: the whole-scan kernels H, I and G on their main paths
     (see the module doc); fills ``stats`` and ``launches``."""
@@ -368,16 +429,7 @@ def whole_scan_phases(dev, kernels, stats, launches, smi):
            "library)")
 
     # ---- 9. kernel I ----------------------------------------------------------
-    def nl_ekf(d, dt, user_jac=False):
-        A_, C_ = mat(CV_A, dt, d), mat(CV_C, dt, d)
-        jac = dict(Ajac=lambda x, u, p, t: A_ + 0.01 * torch.diag(
-            torch.cos(x)), Cjac=lambda x, u, p, t: C_) if user_jac else {}
-        return llpt.make_ekf(
-            lambda x, u, p, t: A_ @ x + 0.01 * torch.sin(x),
-            lambda x, u, p, t: C_ @ x, eye(4, 0.1, dt, d), eye(2, 1, dt, d),
-            d0=llpt.MvNormal(torch.zeros(4, dtype=dt, device=d),
-                             eye(4, 0.5, dt, d)), nu=0, ny=2, **jac)
-
+    nl_ekf = nonlinear_ekf
     e9, e9j = nl_ekf(dev, torch.float32), nl_ekf(dev, torch.float32, True)
     ys9 = randn(T_SCAN, 2, 90)
     y9 = ys9.to(dev)
@@ -431,19 +483,6 @@ def whole_scan_phases(dev, kernels, stats, launches, smi):
     log("I", f"user-Jacobian filter: tracing {ts9j[0]} s, build {ts9j[1]} s")
 
     # ---- 10. kernel G ---------------------------------------------------------
-    def quadtank(d, dt):
-        g1 = lambda x: torch.sqrt(torch.abs(x) + 0.1)  # noqa: E731
-
-        def dyn(x, u, p, t):
-            return x + 0.1 * torch.stack([-g1(x[0]) + 0.5 * g1(x[1]),
-                                          -0.5 * g1(x[1]) + 0.1])
-
-        return llpt.make_ukf(
-            dyn, lambda x, u, p, t: x, eye(2, 1e-3, dt, d),
-            eye(2, 1e-2, dt, d), ny=2, nu=0,
-            d0=llpt.MvNormal(torch.ones(2, dtype=dt, device=d),
-                             eye(2, 0.1, dt, d)))
-
     def angle_ukf(d, dt):
         wrap = lambda a: torch.remainder(a + math.pi, 2 * math.pi) - math.pi
 
@@ -457,7 +496,7 @@ def whole_scan_phases(dev, kernels, stats, launches, smi):
             R1=torch.diag(torch.tensor([0.01, 0.001], dtype=dt, device=d)),
             nu=0)
 
-    q10 = quadtank(dev, torch.float32)
+    q10 = quadtank_ukf(dev, torch.float32)
     ang10 = angle_ukf(dev, torch.float32)
     ys10 = randn(T_SCAN, 2, 100, scale=0.1, shift=1.0)
     y10 = ys10.to(dev)
@@ -492,7 +531,7 @@ def whole_scan_phases(dev, kernels, stats, launches, smi):
                    FIELDS),
         check_twin("G angle hook", ukf_scan.ukf_scan(ang10, yat),
                    ukf_scan.ukf_scan_plain(ang10, yat), FIELDS))
-    ref10 = float(llpt.loglik(quadtank("cpu", torch.float64), None,
+    ref10 = float(llpt.loglik(quadtank_ukf("cpu", torch.float64), None,
                               ys10[:T_REF].double(), method="sequential"))
     rel10 = check_ref("G T=5000", llpt.loglik(q10, None, y10[:T_REF]), ref10)
     ref10a = float(llpt.loglik(angle_ukf("cpu", torch.float64), None,
@@ -522,6 +561,228 @@ def whole_scan_phases(dev, kernels, stats, launches, smi):
         f"{(UKF.launches - k0) / 6:g} launch(es) of G a call ({smi})")
 
 
+FFBS_M, FFBS_SIZES = 1000, ((1000, 500), (65536, 24))  # (N, T), phase 11
+#: RMS over steps and states of (FFBS smoothed mean - RTS mean) /
+#: sqrt(RTS variance) that phase 11 accepts: the plain loop gives 0.15-0.24
+#: at N = 1000 particles and M = 500 trajectories, a selection off by one
+#: column about 1.5 (a CPU rehearsal of tests/test_torch_cuda.py)
+FFBS_RMS_Z = 0.4
+
+
+def ffbs_ops(T, N, M, nx):
+    """Operations of kernel J: per (t, m, n) the score (2 nx + 3), the
+    compare, a quarter Philox call, the two logs, the uniform (4) and two
+    negations; per (t, m) the whitened state."""
+    per_draw = 2 * nx + 4 + PHILOX_OPS / 4 + 2 + 4 + 2
+    return (T - 1) * M * (N * per_draw + 3 * nx * (nx + 1) // 2 + 3 * nx)
+
+
+def ffbs_bytes(T, N, M, nx):
+    """zpred, wfc, c and xf of steps 0..T-2, xb_T, L⁻¹ and mu read once;
+    the [T, M, nx] trajectories written once."""
+    return 4 * ((T - 1) * (2 * N * nx + N + nx) + M * nx + nx * nx + nx
+                + T * M * nx)
+
+
+def ffbs_phase(dev, kernels, stats, launches, smi, data, model, kf):
+    """Phase 11: the FFBS particle smoother on the bench_ffbs model
+    (bench.py:552-564) at N = M = 1000, T = 500 and M = 1000, N = 65536,
+    T = 24 (see the module doc)."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import ffbs
+    from lowlevelparticlefilters_jl_tpu_torch.smoothing import (
+        _predicted_means)
+
+    J = ffbs.FFBS_BACKWARD
+    cases = []
+    for N, T in FFBS_SIZES:
+        u, y, _ = data(T, seed=110 + T)
+        cases.append((N, T, u, y, model(N, backend="kernel"),
+                      u.float().to(dev), y.float().to(dev)))
+    for k in kernels:
+        k.launches = 0
+    xbs = []
+    for N, T, u, y, pf, uc, yc in cases:
+        j0 = J.launches
+        xb, ll = pf.smooth(uc, yc, M=FFBS_M, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        require(llpt.last_route("smooth") == "cuda_ffbs_kernel"
+                and J.launches == j0 + 1,
+                f"pf.smooth N={N}: route {llpt.last_route('smooth')}, "
+                f"{J.launches - j0} launches of J")
+        require(xb.shape == (T, FFBS_M, 2) and bool(torch.isfinite(xb).all())
+                and bool(torch.isfinite(ll)), f"N={N}: finite [T, M, 2]")
+        xbs.append(xb)
+    path = {k.name: k.launches for k in kernels}
+    for name in ("ffbs_backward", "systematic_gather", "normal",
+                 "add_gaussian_noise"):
+        require(path[name] >= 1, f"phase 11 launched {name}")
+    require(path["ffbs_backward"] == 2, f"one J a call: {path}")
+    launches["ffbs_backward"] = path["ffbs_backward"]
+    for name in ("systematic_gather", "normal", "add_gaussian_noise"):
+        launches[name] += path[name]
+    log("FFBS", f"pf.smooth M={FFBS_M} at (N, T) = {FFBS_SIZES}: route "
+        f"cuda_ffbs_kernel; launches {path}")
+
+    worst, rows = 0.0, []
+    for (N, T, u, y, pf, uc, yc), xb in zip(cases, xbs):
+        # the statistical check against the exact smoother
+        ssol = llpt.rts_smooth(llpt.forward_trajectory(kf, u, y), kf)
+        z = (llpt.smoothed_mean(xb).double().cpu() - ssol.xT) / \
+            torch.diagonal(ssol.RT, dim1=-2, dim2=-1).sqrt()
+        rms = float(z.square().mean().sqrt())
+        require(rms < FFBS_RMS_Z, f"N={N}: FFBS mean within {FFBS_RMS_Z} RTS "
+                f"deviations (RMS) of the exact smoother, got {rms:.3g}")
+        # J against its twin on one fixed forward solution
+        sol = pf.forward_trajectory(uc, yc, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 1))
+        tvec = torch.arange(T - 1, dtype=torch.float32, device=dev)
+        xpred = _predicted_means(pf.dynamics, sol.x[:-1], sol.u[:-1], tvec,
+                                 None)
+        d1 = pf.dynamics_density
+        zpred, wfc, c, Linv = ffbs.whiten(xpred, sol.w[:-1], d1.chol())
+        args = (zpred, wfc, c, sol.x[:-1].contiguous(),
+                sol.x[-1][:FFBS_M].contiguous(), Linv, d1.mean.contiguous())
+        apart = {}
+        for noise_on in (False, True):
+            out, idx = ffbs.ffbs_backward_scan(*args, 17, noise=noise_on,
+                                               return_indices=True)
+            ref, ridx = ffbs.ffbs_backward_plain(*args, 17, noise=noise_on,
+                                                 return_indices=True)
+            apart[noise_on] = float((idx != ridx).float().mean())
+            worst = max(worst, float((out - ref).abs().max()))
+        # MAP exact; with the same Philox stream at most 0.1 % of the
+        # draws apart (a near-tie broken by one ulp), expected none
+        require(apart[False] == 0.0, f"N={N}: J's MAP columns equal the "
+                f"twin's ({apart[False]:.3g} apart)")
+        require(apart[True] <= 1e-3, f"N={N}: J's Gumbel draws within 0.1 % "
+                f"of the twin's ({apart[True]:.3g} apart)")
+        ms = cuda_ms(lambda: ffbs.ffbs_backward_scan(*args, 17), 5)
+        med = host_median_ms(lambda: pf.smooth(
+            uc, yc, M=FFBS_M, generator=torch.Generator(device=dev)
+            .manual_seed(SEED)))
+        rows.append(dict(N=N, T=T, ms=ms, med=med, rms=rms, apart=apart,
+                         args=args))
+        log("FFBS", f"N={N} T={T} M={FFBS_M}: smoothed mean RMS {rms:.4f} "
+            f"RTS deviations (bound {FFBS_RMS_Z}); J vs twin: MAP "
+            f"{apart[False]:.3g}, noise {apart[True]:.3g} of the draws "
+            f"apart; J {ms:.4f} ms by CUDA events; pf.smooth median of 5 "
+            f"{med:.3f} ms, {(T - 1) * FFBS_M * N / med * 1e3:.4g} backward "
+            f"weights/s ({smi})")
+    main_row = rows[0]
+    N, T = main_row["N"], main_row["T"]
+    stats["ffbs_backward"] = dict(
+        max_abs_err=worst, T=T, N=N, M=FFBS_M, library_ms=None,
+        ms=main_row["ms"],
+        plain_ms=cuda_ms(lambda: ffbs.ffbs_backward_plain(
+            *main_row["args"], 17), 1),
+        **bound(ffbs_bytes(T, N, FFBS_M, 2), ffbs_ops(T, N, FFBS_M, 2)))
+    big = rows[1]
+    log("J ffbs_backward", f"{stats['ffbs_backward']}; at N={big['N']} "
+        f"T={big['T']}: {big['ms']:.4f} ms, bound "
+        f"{bound(ffbs_bytes(big['T'], big['N'], FFBS_M, 2), ffbs_ops(big['T'], big['N'], FFBS_M, 2))}")
+
+
+def smoother_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2):
+    """Phase 12: the RTS family on CUDA tensors (see the module doc)."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch import convert
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import ukf_scan
+
+    kf64 = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, device="cpu")
+    kf32 = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2,
+                                            dtype=torch.float32, device=dev)
+    g = torch.Generator().manual_seed(120)
+    u_par = torch.full((T_PAR, 1), 0.3, dtype=torch.float64)
+    y_par = 0.3 * torch.randn(T_PAR, 2, generator=g, dtype=torch.float64)
+    ys = {"cv": torch.randn(T_SCAN, 2, generator=g, dtype=torch.float64),
+          "quadtank": 1.0 + 0.1 * torch.randn(T_SCAN, 2, generator=g,
+                                              dtype=torch.float64),
+          "ekf": torch.randn(T_SCAN, 2, generator=g, dtype=torch.float64)}
+    models = {"cv": cv_ukf, "quadtank": quadtank_ukf, "ekf": nonlinear_ekf}
+    f32 = {k: b(dev, torch.float32) for k, b in models.items()}
+    f64 = {k: b("cpu", torch.float64) for k, b in models.items()}
+    uc, yc = u_par.float().to(dev), y_par.float().to(dev)
+    G, K = ukf_scan.UKF_SCAN, [k for k in kernels if k.name == "assoc_scan"][0]
+    for k in kernels:
+        k.launches = 0
+    sm_kf = llpt.smooth(kf32, uc, yc)
+    require(llpt.last_route("smooth") == "cuda_temporal_parallel",
+            f"smooth(kf) T={T_PAR}: route {llpt.last_route('smooth')}")
+    outs = {}
+    for name, f in f32.items():
+        outs[name] = llpt.smooth(f, None, ys[name].float().to(dev))
+        require(llpt.last_route("smooth") == "cuda_temporal_parallel"
+                and bool(torch.isfinite(outs[name].xT).all()),
+                f"smooth({name}) T={T_SCAN}: route "
+                f"{llpt.last_route('smooth')}")
+    q4 = llpt.parallel_ukf_smooth(f32["quadtank"], None,
+                                  ys["quadtank"].float().to(dev), iters=4)
+    yq2k = ys["quadtank"][:T_TWIN].float().to(dev)
+    fused = f32["quadtank"].smooth(None, yq2k, fused=True)
+    path = {k.name: k.launches for k in kernels}
+    require(path["ukf_scan"] == 1 and path["assoc_scan"] >= 1
+            and path["akf_scan"] == path["ekf_scan"] == 0,
+            f"phase 12 launches: {path}")
+    launches["ukf_scan"] += path["ukf_scan"]
+    launches["assoc_scan"] += path["assoc_scan"]
+
+    tol = dict(rtol=1e-3, atol=1e-4)
+
+    def held(what, got, want):
+        for fld in ("xT", "RT"):
+            a, b = getattr(got, fld).double().cpu(), getattr(want, fld)
+            require(torch.allclose(a, b, **tol), f"{what}: {fld} within "
+                    f"rtol 1e-3, atol 1e-4 of float64 CPU")
+        return float((got.xT.double().cpu() - want.xT).abs().max())
+
+    errs = {"kf": held("smooth(kf) T=1e5", sm_kf, llpt.smooth(
+        kf64, u_par, y_par, method="parallel"))}
+    u2k, y2k = u_par[:T_TWIN], y_par[:T_TWIN]
+    seq = llpt.smooth(kf32, u2k.float().to(dev), y2k.float().to(dev),
+                      method="sequential")
+    require(llpt.last_route("smooth") == "sequential", "sequential route")
+    errs["kf sequential"] = held("smooth(kf, sequential) T=2000", seq,
+                                 llpt.smooth(kf64, u2k, y2k,
+                                             method="sequential"))
+    sol32 = llpt.forward_trajectory(kf32, u2k.float().to(dev),
+                                    y2k.float().to(dev))
+    sol64 = llpt.forward_trajectory(kf64, u2k, y2k, method="sequential")
+    errs["mbf"] = held("smooth_mbf T=2000", llpt.smooth_mbf(sol32, kf32)[0],
+                       llpt.smooth_mbf(sol64, kf64)[0])
+    for name in f32:
+        y5k = ys[name][:T_REF]
+        got = llpt.smooth(f32[name], None, y5k.float().to(dev))
+        errs[name] = held(f"smooth({name}) T={T_REF}", got, llpt.smooth(
+            f64[name], None, y5k, method="parallel"))
+    errs["quadtank iters=4"] = held(
+        f"parallel_ukf_smooth(quadtank, iters=4) T={T_REF}",
+        llpt.parallel_ukf_smooth(f32["quadtank"], None,
+                                 ys["quadtank"][:T_REF].float().to(dev),
+                                 iters=4),
+        llpt.parallel_ukf_smooth(f64["quadtank"], None,
+                                 ys["quadtank"][:T_REF], iters=4))
+    errs["fused"] = held(f"quadtank smooth(fused=True) T={T_TWIN}", fused,
+                         f64["quadtank"].smooth(None,
+                                                ys["quadtank"][:T_TWIN]))
+    require(bool(torch.isfinite(q4.xT).all()), "iters=4 finite")
+    log("smooth", f"routes cuda_temporal_parallel (KF T={T_PAR}; CV, "
+        f"quadtank, EKF T={T_SCAN}); largest |xT - f64| {errs}; "
+        f"launches {path}")
+    meds = {"kf T=1e5": host_median_ms(lambda: llpt.smooth(kf32, uc, yc))}
+    for name, f in f32.items():
+        yy = ys[name].float().to(dev)
+        k0 = K.launches
+        meds[name] = host_median_ms(lambda: llpt.smooth(f, None, yy))
+        meds[name + " K/call"] = (K.launches - k0) / 6
+    yy = ys["quadtank"].float().to(dev)
+    meds["quadtank iters=4"] = host_median_ms(
+        lambda: llpt.parallel_ukf_smooth(f32["quadtank"], None, yy, iters=4))
+    log("smooth", "medians of 5 (ms; T = 5e4 unless named): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in meds.items()) + f" ({smi})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -534,7 +795,7 @@ def main():
     from lowlevelparticlefilters_jl_tpu_torch import convert
     from lowlevelparticlefilters_jl_tpu_torch.filters import bank as tbank
     from lowlevelparticlefilters_jl_tpu_torch.kernels import (
-        _lib, assoc_scan, bank_scan, noise, pf_scan, resample_route,
+        _lib, assoc_scan, bank_scan, ffbs, noise, pf_scan, resample_route,
         ukf_scan)
     from lowlevelparticlefilters_jl_tpu_torch.ops import resample as ors
     from lowlevelparticlefilters_jl_tpu_torch.parallel import temporal
@@ -543,7 +804,7 @@ def main():
     kernels = [pf_scan.PF_LOGLIK_SCAN, resample_route.SYSTEMATIC_GATHER,
                noise.NORMAL, noise.ADD_GAUSSIAN_NOISE, bank_scan.BANK_LOGLIK,
                ukf_scan.UKF_SCAN, ukf_scan.AKF_SCAN, ukf_scan.EKF_SCAN,
-               assoc_scan.ASSOC_SCAN]
+               ffbs.FFBS_BACKWARD, assoc_scan.ASSOC_SCAN]
     stats = {k.name: {} for k in kernels}
     launches = {}
 
@@ -788,6 +1049,23 @@ def main():
         require(k.launches >= 1, f"kernel {k.name} launched in the main run")
         require(k.name != "pf_loglik_scan" or k.launches == 1,
                 "kernel A launched once")
+    # two seeded calls agree bit for bit, resampling included; PyTorch's
+    # 1-D cumsum on the card (CUB's single-pass scan) is what did not
+    again = pfk.forward_trajectory(u5.float().to(dev), y5.float().to(dev),
+                                   generator=torch.Generator(device=dev)
+                                   .manual_seed(SEED))
+    require(all(torch.equal(getattr(sol, f), getattr(again, f))
+                for f in ("x", "w", "we", "ll")),
+            "two seeded forward_trajectory calls are bitwise equal")
+    we_ = torch.rand(N_MAIN, generator=gcpu).to(dev) ** 8
+    distinct = {name: len({fn(we_).cpu().numpy().tobytes()
+                           for _ in range(50)})
+                for name, fn in (("torch.cumsum", lambda w: torch.cumsum(
+                    w, 0)), ("ops.resample._cumsum", ors._cumsum))}
+    require(distinct["ops.resample._cumsum"] == 1,
+            f"the resampling cumsum has one order: {distinct}")
+    log("unfused", f"two seeded calls bitwise equal; distinct results of 50 "
+        f"cumsums of {N_MAIN} weights: {distinct}")
 
     # main-path time: median of 5 calls after a warm-up, host clock
     def run():
@@ -1025,6 +1303,8 @@ def main():
 
 
     whole_scan_phases(dev, kernels, stats, launches, smi)
+    ffbs_phase(dev, kernels, stats, launches, smi, data, model, kf)
+    smoother_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2)
 
     print(json.dumps({"kernels": [dict(
         name=k.name, route="cuda", source=k.source, replaces=k.replaces,

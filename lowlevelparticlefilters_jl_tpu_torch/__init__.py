@@ -4,14 +4,17 @@ The JAX package ``lowlevelparticlefilters_jl_tpu`` is the reference; this
 package mirrors its layout file for file and is held against it by the
 ``tests/test_torch_*.py`` parity tests.  It covers the Kalman filter
 (sequential and temporal-parallel), the UKF and EKF (and IEKF), the
-measurement models, the shared-Riccati KF bank and the bootstrap particle
-filter's log-likelihood.  On CUDA tensors ``pf.loglik`` runs the whole
+measurement models, the shared-Riccati KF bank, the bootstrap particle
+filter and the smoothers (RTS, MBF, the UKF/EKF backward passes, the
+temporal-parallel and iterated parallel smoothers, FFBS).  On CUDA tensors ``pf.loglik`` runs the whole
 recursion as one hand-written kernel (kernels/pf_scan.py), a long KF
 trajectory runs the associative scan kernel (kernels/assoc_scan.py),
 ``kf_bank_loglik`` runs the bank kernel (kernels/bank_scan.py), and the
 UKF, EKF and ``KalmanFilter.loglik_fused`` run the whole-scan kernels
-G, H and I (kernels/ukf_scan.py), with the user callbacks compiled in;
-the CUDA sources in ``csrc/`` are built with ``nvcc`` at first use.
+G, H and I (kernels/ukf_scan.py), with the user callbacks compiled in,
+and the FFBS particle smoother's backward pass runs kernel J
+(kernels/ffbs.py); the CUDA sources in ``csrc/`` are built with ``nvcc``
+at first use.
 
 Quick start::
 
@@ -25,6 +28,8 @@ Quick start::
                              initial_density=R1)
     ll = pf.loglik(u, y, generator=torch.Generator(device="cuda"))
     lls = llpt.kf_bank_loglik(kf, us, ys)        # ys [B, T, ny]
+    ssol = llpt.smooth(kf, u, y)                  # ssol.xT, ssol.RT
+    xb, ll = pf.smooth(u, y, M=1000, generator=g)  # FFBS, [T, M, nx]
 """
 
 from .ops.logsumexp import (
@@ -87,7 +92,10 @@ from .routing import METHODS, last_route
 from .filters.bank import (KFBankSolution, kf_bank_admissible,
                            kf_bank_forward, kf_bank_loglik)
 from .parallel.temporal import (parallel_forward_trajectory,
-                                parallel_rts_smooth)
+                                parallel_rts_smooth, parallel_iekf_smooth,
+                                parallel_ukf_smooth)
+from .smoothing import (smooth, rts_smooth, smooth_mbf, ffbs_smooth,
+                        smoothed_mean, smoothed_cov, smoothed_trajs)
 from .parallel.bank import bank_forward_trajectory, bank_loglik
 
 # naming alias for users arriving from the reference package

@@ -20,6 +20,7 @@ from .filters.particle import ParticleFilter
 from .filters.ukf import UnscentedKalmanFilter, make_ukf
 from .kernels._lib import default_device
 from .ops.mvnormal import MvNormal
+from .utils.solutions import KalmanFilteringSolution, ParticleFilteringSolution
 
 
 def _t(a, dtype, device) -> Optional[torch.Tensor]:
@@ -120,3 +121,42 @@ def linear_callbacks(A, B, C, dtype=torch.float32, device=None):
         return Ct @ x
 
     return dynamics, measurement
+
+
+def _solution_fields(sol, names, dtype, device) -> dict:
+    """The named array fields of ``sol`` as tensors: floating arrays in
+    ``dtype``, boolean ones as they are; a missing or None field stays
+    None."""
+    out = {}
+    for name in names:
+        a = getattr(sol, name, None)
+        if a is None:
+            out[name] = None
+            continue
+        a = np.array(a)
+        out[name] = torch.as_tensor(
+            a, dtype=torch.bool if a.dtype == np.bool_ else dtype,
+            device=device)
+    return out
+
+
+def kalman_solution_from_numpy(sol, *, dtype=torch.float64, device=None
+                               ) -> KalmanFilteringSolution:
+    """A :class:`KalmanFilteringSolution` from the arrays of a filtering
+    solution of the JAX package (or any object with its fields ``u, y, x,
+    xt, R, Rt, ll, e, K, S, t, ok``), so that a smoother of each package
+    can run on one shared forward pass."""
+    device = default_device(device)
+    f = _solution_fields(sol, ("u", "y", "x", "xt", "R", "Rt", "ll", "e",
+                               "K", "S", "t", "ok"), dtype, device)
+    return KalmanFilteringSolution(**f, route="converted")
+
+
+def particle_solution_from_numpy(sol, *, dtype=torch.float32, device=None
+                                 ) -> ParticleFilteringSolution:
+    """A :class:`ParticleFilteringSolution` from the arrays of a particle
+    filtering solution (fields ``u, y, x, w, we, ll``)."""
+    device = default_device(device)
+    f = _solution_fields(sol, ("u", "y", "x", "w", "we", "ll"), dtype,
+                         device)
+    return ParticleFilteringSolution(**f, route="converted")

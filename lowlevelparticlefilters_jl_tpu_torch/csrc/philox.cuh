@@ -1,6 +1,6 @@
 // Philox4x32-10 counter-based generator and Box-Muller normals, shared by
-// the noise kernels (noise.cu) and the fused particle-filter scan
-// (pf_scan.cu).
+// the noise kernels (noise.cu), the fused particle-filter scan
+// (pf_scan.cu) and the FFBS backward pass (ffbs.cu, Gumbel noise).
 //
 // Replaces the TPU hardware PRNG (`pltpu.prng_seed`/`prng_random_bits`)
 // that the Pallas kernels in ops/pallas/noise.py and ops/pallas/pf_scan.py
@@ -22,6 +22,7 @@
 #define LLPF_TAG_PROPAGATE 2u
 #define LLPF_TAG_INIT 3u
 #define LLPF_TAG_RESAMPLE 4u
+#define LLPF_TAG_FFBS 5u
 
 __device__ __forceinline__ uint4 llpf_philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll

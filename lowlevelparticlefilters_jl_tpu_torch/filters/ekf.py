@@ -12,19 +12,13 @@ import torch
 from ..models.measurement_models import (AbstractMeasurementModel,
                                          EKFMeasurementModel,
                                          IEKFMeasurementModel, _ny_of)
-from ..ops.linalg import symmetrize
+from ..ops.linalg import chol_lower, rdiv_chol, symmetrize
 from ..ops.matrices import MatLike, as_matspec, resolve_mat
 from ..ops.mvnormal import MvNormal, as_mvnormal
 from ..utils.signal_names import SignalNames, default_names
 from ..utils.struct import struct
 from .base import AbstractKalmanFilter
 from .kalman import KFState
-
-
-def _smooth_not_ported(name: str):
-    raise NotImplementedError(
-        f"{name}.smooth needs smoothing.py, which the PyTorch port has not "
-        "ported yet (ROADMAP.md, Queue 1, slice 4)")
 
 
 @struct
@@ -106,8 +100,29 @@ class ExtendedKalmanFilter(AbstractKalmanFilter):
         return model.correct(self, state, u, y, p, t, R2=R2)
 
     def smooth(self, u, y, p=None, sol=None, fused=False, **kwargs):
-        """The EKF-RTS smoother waits for the port of ``smoothing.py``."""
-        _smooth_not_ported("ExtendedKalmanFilter")
+        """EKF-RTS smoother re-linearizing A at the smoothed point
+        (``A = Ajac(xT[t+1], u[t+1], ...)``).
+
+        ``fused=True``: the forward pass through the whole-scan kernels
+        (:meth:`forward_trajectory_fused`, kernels H and I); float32 and
+        not differentiable."""
+        from ..trajectory import forward_trajectory
+        from ..utils.solutions import KalmanSmoothingSolution
+
+        p = self.p if p is None else p
+        if sol is None and fused:
+            sol = self.forward_trajectory_fused(u, y)
+        if sol is None:
+            sol = forward_trajectory(self, u, y, p, **kwargs)
+        x, xt, R, Rt = sol.x, sol.xt, sol.R, sol.Rt
+        xT, RT = [xt[-1]], [Rt[-1]]
+        for k in range(xt.shape[0] - 2, -1, -1):
+            A = self._Ajac(xT[-1], sol.u[k + 1], p, (k + 1) * self.Ts)
+            C = rdiv_chol(Rt[k] @ A.mT, chol_lower(R[k + 1]))
+            xT.append(xt[k] + C @ (xT[-1] - x[k + 1]))
+            RT.append(Rt[k] + symmetrize(C @ (RT[-1] - R[k + 1]) @ C.mT))
+        return KalmanSmoothingSolution(sol=sol, xT=torch.stack(xT[::-1]),
+                                       RT=torch.stack(RT[::-1]))
 
     def loglik_fused(self, ys, us=None):
         """Whole-trajectory log-likelihood through the whole-scan kernels

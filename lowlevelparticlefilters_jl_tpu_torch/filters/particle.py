@@ -15,6 +15,7 @@ the host each step (the JAX package's ``lax.cond``).
   added by kernel D (kernels/noise.py; the JAX package's ``"pallas"``),
   each seeded from the generator.
 
+``smooth`` is the FFBS particle smoother (smoothing.py::ffbs_smooth).
 ``AdvancedParticleFilter`` and ``AuxiliaryParticleFilter`` are not
 ported yet.
 """
@@ -221,6 +222,18 @@ class ParticleFilter(AbstractParticleFilter):
             state, info = self.update(state, u_seq[k], y[k], p, k * self.Ts)
             ll = ll + info.ll
         return ll
+
+    def smooth(self, u, y, p=None, *, M: int,
+               generator: Optional[torch.Generator] = None,
+               backend: str = "auto"):
+        """FFBS particle smoother: :meth:`forward_trajectory`, then
+        ``smoothing.ffbs_smooth`` (kernel J on CUDA float32 data), both
+        drawing from ``generator``.  Returns ``(xb [T, M, nx], ll)``."""
+        from ..smoothing import ffbs_smooth
+
+        sol = self.forward_trajectory(u, y, p, generator=generator)
+        return ffbs_smooth(self, sol, M, generator, u=u, y=y, p=p,
+                           backend=backend)
 
     def weighted_mean(self, state: PFState) -> torch.Tensor:
         return torch.einsum("n,nd->d", state.we, state.x)

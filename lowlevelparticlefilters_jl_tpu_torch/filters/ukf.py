@@ -15,13 +15,12 @@ from ..models.measurement_models import (AbstractMeasurementModel,
                                          UKFMeasurementModel, _ny_of)
 from ..models.sigmapoints import (TrivialParams, UTParams, sigmapoints,
                                   ukf_weights, ut_cov, ut_mean)
-from ..ops.linalg import blkdiag, symmetrize
+from ..ops.linalg import blkdiag, chol_lower, rdiv_chol, symmetrize
 from ..ops.matrices import MatLike, as_matspec, resolve_mat
 from ..ops.mvnormal import MvNormal, as_mvnormal
 from ..utils.signal_names import SignalNames, default_names
 from ..utils.struct import struct
 from .base import AbstractKalmanFilter
-from .ekf import _smooth_not_ported
 from .kalman import KFState
 
 
@@ -143,9 +142,46 @@ class UnscentedKalmanFilter(AbstractKalmanFilter):
         return model.correct(self, state, u, y, p, t, R2=R2)
 
     def smooth(self, u, y, p=None, sol=None, fused=False, **kwargs):
-        """The unscented RTS smoother waits for the port of
-        ``smoothing.py``."""
-        _smooth_not_ported("UnscentedKalmanFilter")
+        """Unscented RTS smoother (Särkkä): the backward pass draws
+        augmented trivial-weight sigma points of ``(xt, w)`` at every step,
+        as the reference does.
+
+        ``fused=True`` runs the forward pass through the whole-scan
+        kernels (:meth:`forward_trajectory_fused`: G, or H for an affine
+        model); float32 and not differentiable."""
+        from ..trajectory import forward_trajectory
+        from ..utils.solutions import KalmanSmoothingSolution
+
+        p = self.p if p is None else p
+        if sol is None and fused:
+            sol = self.forward_trajectory_fused(u, y)
+        if sol is None:
+            sol = forward_trajectory(self, u, y, p, **kwargs)
+        xt, Rt = sol.xt, sol.Rt
+        nx = xt.shape[-1]
+        f = self.dynamics
+        vm = torch.func.vmap
+        xT, RT = [xt[-1]], [Rt[-1]]
+        for k in range(xt.shape[0] - 2, -1, -1):
+            u_k, t_k = sol.u[k], k * self.Ts
+            R1 = resolve_mat(self.R1, xt[k], u_k, p, t_k, Ts=self.Ts)
+            nw = R1.shape[-1]
+            Xs = sigmapoints(torch.cat([xt[k], xt.new_zeros(nw)]),
+                             blkdiag(Rt[k], R1), TrivialParams())
+            if self.augmented_dynamics:
+                Xp = vm(lambda s: f(s[:nx], u_k, p, t_k, s[nx:]))(Xs)
+            else:
+                Xp = vm(lambda s: f(s[:nx], u_k, p, t_k) + s[nx:])(Xs)
+            ns = Xs.shape[0] - 1
+            m_pred = Xp.mean(0)
+            dP = Xp - m_pred
+            P_pred = torch.einsum("si,sj->ij", dP, dP) / ns
+            C = torch.einsum("si,sj->ij", Xs[:, :nx] - xt[k], dP) / ns
+            D = rdiv_chol(C, chol_lower(P_pred))
+            xT.append(xt[k] + D @ (xT[-1] - m_pred))
+            RT.append(Rt[k] + symmetrize(D @ (RT[-1] - P_pred) @ D.mT))
+        return KalmanSmoothingSolution(sol=sol, xT=torch.stack(xT[::-1]),
+                                       RT=torch.stack(RT[::-1]))
 
     def loglik_fused(self, ys, us=None):
         """Whole-trajectory log-likelihood through the whole-scan kernels

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "llpf_bank_loglik": [_P, _I, _P, _P, _I64, _P, _P, _I64, _I, _I, _I, _I,
                          _P],
     "llpf_akf_scan": [_P] * 9 + [_F, _I, _I, _I] + [_P] * 9,
+    "llpf_ffbs_backward": [_P] * 9 + [_I, _I, _I, _I, _U64, _I, _P],
 }
 # entry points of the callback-specialised modules (build_generated)
 _GEN_SIGNATURES = {

@@ -19,7 +19,7 @@ import torch
 from ._lib import (KernelInfo, check, default_device, library,
                    require_cuda_f32, stream_ptr)
 
-TAG_NORMAL, TAG_PROPAGATE, TAG_INIT, TAG_RESAMPLE = 1, 2, 3, 4
+TAG_NORMAL, TAG_PROPAGATE, TAG_INIT, TAG_RESAMPLE, TAG_FFBS = 1, 2, 3, 4, 5
 
 NORMAL = KernelInfo(
     "normal", "lowlevelparticlefilters_jl_tpu_torch/csrc/noise.cu",

@@ -5,10 +5,12 @@ entry).
 The JAX kernel traces the user callbacks into its body and, when a
 jaxpr walk proves them affine in x, evaluates them from per-step
 matrices.  A compiled kernel cannot take a callback, so here admission
-IS that affine case, decided by concrete probes at every step
+IS that affine case: the callbacks lowered by ``callback_codegen`` must
+pass its static walk (``affine_in``, the jaxpr walk's counterpart; one
+verdict per filter), and concrete probes at every step
 (``torch.func.jacfwd`` at x = 0 and at two states four standard
 deviations out, as ``ukf_scan.py::_const_affine_kf_params`` probes in
-the JAX package).  The per-step coefficients
+the JAX package) confirm it.  The per-step coefficients
 ``[T, nx·nx + nx + ny·nx + ny]`` = (M_t, c_t, H_t, d_t) are built as
 ``pf_scan.py:627-642`` builds them.
 
@@ -31,6 +33,7 @@ from ._lib import (KernelInfo, check, library, require_cuda_f32,
 from .noise import (TAG_INIT, TAG_PROPAGATE, normals_plain,
                     resample_offset_plain)
 from .resample_route import slot_sources
+from .ukf_scan import callbacks_affine
 
 PF_LOGLIK_SCAN = KernelInfo(
     "pf_loglik_scan", "lowlevelparticlefilters_jl_tpu_torch/csrc/pf_scan.cu",
@@ -273,7 +276,9 @@ def pf_loglik_fused(pf, u, y, seed: int, *, x0=None, noise: str = "philox",
 
 def kernel_admits(pf, u, y) -> Optional[torch.Tensor]:
     """The coefficients when kernel A admits this call, else None:
-    :func:`pf_scan_supported`, f32 data and densities, affine callbacks."""
+    :func:`pf_scan_supported`, f32 data and densities, callbacks that the
+    static walk finds affine in x (``ukf_scan.callbacks_affine``) and the
+    probes of :func:`affine_coefficients` confirm."""
     if not pf_scan_supported(pf):
         return None
     dens = (pf.dynamics_density, pf.measurement_density, pf.initial_density)
@@ -282,6 +287,12 @@ def kernel_admits(pf, u, y) -> Optional[torch.Tensor]:
     T = y.shape[0]
     u_seq = _as_u_seq(u, T, y.dtype, y.device)
     if not _f32(u_seq):
+        return None
+    # the static walk first: probes at a few states cannot see a clamp or
+    # a branch on x; its verdict is kept per filter
+    zero = torch.zeros((), dtype=torch.float32, device=y.device)
+    if not callbacks_affine(pf, (pf.dynamics, pf.measurement),
+                            zero.expand(pf.nx).clone(), u_seq[0], pf.p, zero):
         return None
     tvec = torch.arange(T, dtype=torch.float32, device=y.device) * pf.Ts
     return affine_coefficients(pf, u_seq, tvec)

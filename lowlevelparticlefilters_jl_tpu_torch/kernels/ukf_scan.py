@@ -171,19 +171,47 @@ def _filter_nu(f) -> int:
     return max(int(getattr(f, "nu", 0)), 0)
 
 
+def callback_affine_in_x(fn, x0, u0, p, t0) -> Optional[cg.Program]:
+    """Static check that ``fn(x, u, p, t)`` is affine in x for every u
+    and t (the JAX package's ``_callback_affine_in_x``): the callback
+    lowered at the example inputs and walked by
+    :func:`callback_codegen.affine_in`.  Returns the program when it is
+    affine, else None; a callback that does not lower is not affine."""
+    prog = cg.lower_or_none(lambda x, u, t: fn(x, u, p, t), (x0, u0, t0),
+                            "Sff", "walk")
+    return prog if prog is not None and cg.affine_in(prog) else None
+
+
 def _affine_programs(f, fns, nu: int) -> Optional[list]:
     """The callbacks ``fns`` of filter ``f`` lowered at its device, or None
     when one does not lower or is not affine in x for every input and
-    time (the static walk, :func:`callback_codegen.affine_in`)."""
-    ex = _examples(f, nu, f.d0.mean.device)
-    bind = lambda fn: lambda x, u, t: fn(x, u, f.p, t)  # noqa: E731
-    progs = []
-    for fn in fns:
-        prog = cg.lower_or_none(bind(fn), ex, "Sff", "walk")
-        if prog is None or not cg.affine_in(prog):
-            return None
-        progs.append(prog)
-    return progs
+    time (:func:`callback_affine_in_x`)."""
+    x0, u0, t0 = _examples(f, nu, f.d0.mean.device)
+    progs = [callback_affine_in_x(fn, x0, u0, f.p, t0) for fn in fns]
+    return None if any(prog is None for prog in progs) else progs
+
+
+def callbacks_affine(f, fns, x0, u0, p, t0) -> bool:
+    """True when every callback of ``fns`` is affine in x
+    (:func:`callback_affine_in_x` at the example inputs ``x0, u0, t0``).
+    With the filter's own ``p`` the verdict is kept per filter, input
+    width, type and device, and made again after a change in place to a
+    tensor the callbacks close over."""
+    def make():
+        progs = []
+        for fn in fns:
+            prog = callback_affine_in_x(fn, x0, u0, p, t0)
+            if prog is None:
+                return False, ()
+            progs.append(prog)
+        return True, tuple((c, c._version) for pr in progs
+                           for c in pr.consts)
+
+    if p is not getattr(f, "p", None):
+        return make()[0]
+    key = ("affine_in_x", tuple(u0.shape), x0.dtype, str(x0.device))
+    return _cached(f, key, make, lambda v: any(
+        c._version != ver for c, ver in v[1]))[0]
 
 
 def _const_jacobians(ekf, mm, nx: int, nu: int):

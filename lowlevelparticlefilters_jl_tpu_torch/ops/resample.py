@@ -22,6 +22,34 @@ def _uniform(generator, shape, like: torch.Tensor) -> torch.Tensor:
                       device=like.device)
 
 
+_ROW = 1024
+
+
+def _cumsum(w: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(w, -1)``, summed in a fixed order on the card too.
+
+    PyTorch scans a 1-D CUDA tensor with CUB's single-pass scan, whose
+    decoupled look-back takes a tile's prefix from whichever earlier
+    partial sums have been published, so the order of the additions, and
+    the last bit of the result, changes from call to call.  A changed
+    bit can move a slot boundary K and so the resampled cloud.  Here the
+    weights are scanned as rows of a [≥2, 1024] view (PyTorch's per-row
+    scan, one fixed order), and the row totals likewise, as the first
+    row of a [2, rows] view."""
+    if not w.is_cuda or w.ndim != 1:
+        return torch.cumsum(w, -1)
+    n = w.shape[0]
+    rows = max(2, -(-n // _ROW))
+    wp = w.new_zeros(rows * _ROW)
+    wp[:n] = w
+    part = wp.view(rows, _ROW).cumsum(1)
+    tot = w.new_zeros(2, rows)
+    tot[0] = part[:, -1]
+    before = tot.cumsum(1)[0]                  # inclusive: rows 0..i
+    part[1:] += before[:-1, None]
+    return part.view(-1)[:n]
+
+
 def _systematic_slots(we: torch.Tensor, r: torch.Tensor, M: int
                       ) -> torch.Tensor:
     """Per-particle slot boundaries K (int32, non-decreasing, in [0, M]).
@@ -29,7 +57,7 @@ def _systematic_slots(we: torch.Tensor, r: torch.Tensor, M: int
     A floating-point cumsum is not monotone under rounding for heavily
     skewed weights, so K is repaired with a running max, as in the JAX
     package; every gather assumes sorted K."""
-    bins = torch.cumsum(we, dim=-1)
+    bins = _cumsum(we)
     total = bins[..., -1:]
     K = torch.ceil(bins * M / total - r).to(torch.int32)
     K = torch.cummax(K, dim=-1).values

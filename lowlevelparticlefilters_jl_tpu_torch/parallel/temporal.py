@@ -448,13 +448,19 @@ def _parallel_filter_core_p(F, c, H, Q, R, y_eff, m0, P0):
         _v_split(y_eff), m0, P0, y_eff.shape[0])
 
 
+def _filtered_moments_pp(Fp, cp, Hp, Qp, Rp, yp, m0, P0, T):
+    """The filtered means and covariances (xt planes, Rt planes) alone:
+    the elements and the scan, without the post-hoc outputs."""
+    return _scan_filter_p(_filter_elements_p(Fp, cp, Hp, Qp, Rp, yp, m0, P0,
+                                             T))
+
+
 def _parallel_filter_core_pp(Fp, cp, Hp, Qp, Rp, yp, m0, P0, T):
     """Plane-pipeline filter: returns ``(xp, Rp_pred, xtp, Ctp, ep, Sp,
     Schp, Kp, lls)``, all plane structures except the [T] tensor
     ``lls``."""
     ny = len(yp)
-    elems = _filter_elements_p(Fp, cp, Hp, Qp, Rp, yp, m0, P0, T)
-    xtp, Ctp = _scan_filter_p(elems)
+    xtp, Ctp = _filtered_moments_pp(Fp, cp, Hp, Qp, Rp, yp, m0, P0, T)
 
     # predicted moments, innovations and gains; x_pred[0] is the prior
     Fm, cm, Qm = _shift_m(Fp), _shift_v(cp), _shift_m(Qp)
@@ -576,3 +582,254 @@ def parallel_rts_smooth(kf, u, y, p=None,
     Q = _resolve_seq(kf.R1, T)
     g, L = _parallel_smooth_core(F, c, Q, sol.xt, sol.Rt)
     return KalmanSmoothingSolution(sol=sol, xT=g, RT=L)
+
+
+# ---------------------------------------------------------------------------
+# Parallel iterated extended and sigma-point smoothers for nonlinear models
+# (García-Fernández, Sarmavuori & Särkkä, "Parallel iterated extended and
+# sigma-point Kalman smoothers"; the same associative operators)
+# ---------------------------------------------------------------------------
+
+
+def _nominal_inputs(f, u, y, p):
+    """``(u_seq, tvec, p)`` as the iterated smoothers take them: no input
+    is a [T, 0] tensor."""
+    T = y.shape[0]
+    u_seq = (torch.zeros((T, 0), dtype=y.dtype, device=y.device)
+             if u is None else torch.as_tensor(u))
+    tvec = torch.arange(T, dtype=y.dtype, device=y.device) * f.Ts
+    return u_seq, tvec, (f.p if p is None else p)
+
+
+def _smoothing_solution(u_seq, y, tvec, F, c, H, Q, R, y_eff, m0, P0):
+    """The final pass of an iterated smoother on its last linearization:
+    the filter and smoother cores and the solution containers."""
+    x_pred, R_pred, xt, Rt, e, S, _, K, lls = _parallel_filter_core(
+        F, c, H, Q, R, y_eff, m0, P0)
+    xT, RT = _parallel_smooth_core(F, c, Q, xt, Rt)
+    sol = KalmanFilteringSolution(
+        u=u_seq, y=y, x=x_pred, xt=xt, R=R_pred, Rt=Rt, ll=lls.sum(), e=e,
+        K=K, S=S, extra=None, t=tvec, ok=torch.isfinite(xT).all(-1),
+        route=scan_route(xt.shape[-1], y.shape[-1], xt))
+    return KalmanSmoothingSolution(sol=sol, xT=xT, RT=RT)
+
+
+def parallel_iekf_smooth(ekf, u, y, p=None, *, iters: int = 8
+                         ) -> KalmanSmoothingSolution:
+    """O(log T)-depth iterated extended Kalman smoother.
+
+    Gauss–Newton on the MAP trajectory: each iteration linearizes the
+    dynamics and measurement along the current smoothed trajectory (an
+    affine time-varying model) and runs the temporal-parallel filter and
+    RTS smoother on it (kernel K on CUDA float32).  The fixed point is the
+    iterated EKS trajectory; on affine models one pass is exact.  The
+    refinement is a loop of ``iters − 1`` passes; the last pass builds
+    the full solution, whose ``sol`` is the filtered solution of the final
+    linearization.  Needs an EKF-shaped measurement model.
+    """
+    from ..kernels.ukf_scan import callbacks_affine
+
+    mm = ekf.measurement_model
+    if not hasattr(mm, "measurement"):
+        raise TypeError("parallel_iekf_smooth needs an EKF-shaped "
+                        "measurement model")
+    T = y.shape[0]
+    u_seq, tvec, p = _nominal_inputs(ekf, u, y, p)
+    m0, P0 = ekf.d0.mean, ekf.d0.cov
+    nx = m0.shape[-1]
+    dyn, h = ekf.dynamics, mm.measurement
+    Q, R = _resolve_seq(ekf.R1, T), _resolve_seq(mm.R2, T)
+    vm = torch.func.vmap
+
+    def linearize(xbar):
+        F = vm(lambda xk, uk, tk: ekf._Ajac(xk, uk, p, tk))(xbar, u_seq, tvec)
+        fx = vm(lambda xk, uk, tk: dyn(xk, uk, p, tk))(xbar, u_seq, tvec)
+        H = vm(lambda xk, uk, tk: mm._Cjac(xk, uk, p, tk))(xbar, u_seq, tvec)
+        hx = vm(lambda xk, uk, tk: h(xk, uk, p, tk))(xbar, u_seq, tvec)
+        return F, fx - _mv_t(F, xbar), H, y - (hx - _mv_t(H, xbar))
+
+    # affine models: the linearization is exact and trajectory-
+    # independent, so the single final pass is the fixed point
+    if callbacks_affine(ekf, (dyn, h), torch.zeros_like(m0), u_seq[0], p,
+                        tvec[0]):
+        iters = 1
+    # the initial nominal trajectory is the prior mean replicated: a
+    # noiseless rollout would be a sequential T-step loop
+    xbar = m0.expand(T, nx)
+    if nx <= _PLANE_N and y.shape[-1] <= _PLANE_N:
+        Qp, Rp = _m_split(Q), _m_split(R)
+        for _ in range(iters - 1):
+            F, c, H, y_eff = linearize(xbar)
+            Fp, cp = _m_split(F), _v_split(c)
+            xtp, Ctp = _filtered_moments_pp(Fp, cp, _m_split(H), Qp, Rp,
+                                            _v_split(y_eff), m0, P0, T)
+            xbar = _v_join(_parallel_smooth_core_p(Fp, cp, Qp, xtp, Ctp,
+                                                   T)[0])
+    else:
+        for _ in range(iters - 1):
+            F, c, H, y_eff = linearize(xbar)
+            _, _, xt, Rt, *_ = _parallel_filter_core(F, c, H, Q, R, y_eff,
+                                                     m0, P0)
+            xbar = _parallel_smooth_core(F, c, Q, xt, Rt)[0]
+    F, c, H, y_eff = linearize(xbar)
+    return _smoothing_solution(u_seq, y, tvec, F, c, H, Q, R, y_eff, m0, P0)
+
+
+def _slr_many(fns, m, P, W, params):
+    """Statistical linear regression of several functions at the same
+    N(m, P): the sigma points and the Cholesky factor of P are built once.
+    Returns ``((F, c, Om) per function, sigma points)`` with
+    ``F = Pxyᵀ P⁻¹``, ``c = ybar − F m``, ``Om = Pyy − F P Fᵀ``."""
+    from ..models.sigmapoints import sigmapoints, ut_cov, ut_cross_cov, \
+        ut_mean
+    from ..ops.linalg import chol_solve
+
+    xs = sigmapoints(m, P, params)
+    Lc = chol_lower(symmetrize(P))
+
+    def one(fn):
+        ys = torch.func.vmap(fn)(xs)
+        ybar = ut_mean(ys, W)
+        Fk = chol_solve(Lc, ut_cross_cov(xs, m, ys, ybar, W)).mT
+        Om = symmetrize(ut_cov(ys, ybar, W) - Fk @ P @ Fk.mT)
+        return Fk, ybar - Fk @ m, Om
+
+    return tuple(one(fn) for fn in fns), xs
+
+
+def _slr_linearize_p(fns, out_dims, m_p, P_p, W, u_seq, tvec, p, T):
+    """Plane form of :func:`_slr_many` along a trajectory of N(m_t, P_t)
+    (the same formulas; the sigma points are m ± √W · columns of
+    chol(P)).  Only the callback evaluation stacks [T, 2nx+1, ·] tensors;
+    the moments, factorizations and regression solves are plane
+    arithmetic."""
+    nx = len(m_p)
+    NP = 2 * nx + 1
+    Lc = _chol_p(_sym_p(P_p))
+    sW = float(W.W) ** 0.5
+    pts = [tuple(m_p)]
+    for i in range(nx):
+        pts.append(tuple(m_p[q] + sW * Lc[q][i] for q in range(nx)))
+    for i in range(nx):
+        pts.append(tuple(m_p[q] - sW * Lc[q][i] for q in range(nx)))
+    X3 = torch.stack([torch.stack(list(pt), -1) for pt in pts], 1)
+    vm = torch.func.vmap
+    dx = [tuple(pts[s][a] - m_p[a] for a in range(nx)) for s in range(NP)]
+    outs = []
+    for fn, nout in zip(fns, out_dims):
+        ys = vm(lambda xrow, uk, tk: vm(lambda x: fn(x, uk, p, tk))(xrow))(
+            X3, u_seq, tvec)
+        ys_p = [tuple(ys[:, s, j] for j in range(nout)) for s in range(NP)]
+        ybar = tuple(W.wm * ys_p[0][j]
+                     + W.wmi * sum(ys_p[s][j] for s in range(1, NP))
+                     for j in range(nout))
+        dy = [tuple(ys_p[s][j] - ybar[j] for j in range(nout))
+              for s in range(NP)]
+        Pxy = tuple(tuple(
+            W.wc * dx[0][a] * dy[0][b]
+            + W.wci * sum(dx[s][a] * dy[s][b] for s in range(1, NP))
+            for b in range(nout)) for a in range(nx))
+        Pyy = tuple(tuple(
+            W.wc * dy[0][a] * dy[0][b]
+            + W.wci * sum(dy[s][a] * dy[s][b] for s in range(1, NP))
+            for b in range(nout)) for a in range(nout))
+        Fk = _mt_p(_chol_solve_p(Lc, Pxy))        # Pxyᵀ P⁻¹, [nout][nx]
+        ck = _vsub_p(ybar, _mv_p(Fk, m_p))
+        Om = _sym_p(_msub_p(Pyy, _mm_p(_mm_p(Fk, _sym_p(P_p)), _mt_p(Fk))))
+        outs.append((Fk, ck, Om))
+    return outs
+
+
+def parallel_ukf_smooth(ukf, u, y, p=None, *, iters: int = 8
+                        ) -> KalmanSmoothingSolution:
+    """O(log T)-depth iterated sigma-point (posterior-linearization)
+    Kalman smoother, the unscented counterpart of
+    :func:`parallel_iekf_smooth`.
+
+    Each iteration statistically linearizes the dynamics and measurement
+    along the current smoothed trajectory and covariance (the unscented
+    SLR), folding the residual covariances into R1 and R2, and runs the
+    temporal-parallel filter and RTS smoother on that affine model.  On
+    affine models the SLR is exact, so one Jacobian linearization and one
+    pass are the fixed point and the sigma points are skipped; otherwise
+    ``iters`` linearizations, each a plane pipeline for nx, ny <= 8.
+    """
+    from ..kernels.ukf_scan import callbacks_affine
+    from ..models.sigmapoints import ukf_weights
+
+    mm = ukf.measurement_model
+    if not hasattr(mm, "measurement"):
+        raise TypeError("parallel_ukf_smooth needs a UKF-shaped measurement "
+                        "model")
+    T, ny = y.shape
+    u_seq, tvec, p = _nominal_inputs(ukf, u, y, p)
+    m0, P0 = ukf.d0.mean, ukf.d0.cov
+    nx = m0.shape[-1]
+    params = ukf.weight_params
+    W = ukf_weights(params, nx)
+    dyn, h = ukf.dynamics, mm.measurement
+    Q, R = _resolve_seq(ukf.R1, T), _resolve_seq(mm.R2, T)
+    vm = torch.func.vmap
+    zx = torch.zeros_like(m0)
+
+    if callbacks_affine(ukf, (dyn, h), zx, u_seq[0], p, tvec[0]):
+        # the unscented SLR of an affine map is (Jacobian, fn(0), 0) for
+        # any (m, P): one Jacobian linearization, one pass
+        jac = torch.func.jacfwd
+        F = vm(lambda uk, tk: jac(lambda x: dyn(x, uk, p, tk))(zx))(u_seq,
+                                                                     tvec)
+        c = vm(lambda uk, tk: dyn(zx, uk, p, tk))(u_seq, tvec)
+        H = vm(lambda uk, tk: jac(lambda x: h(x, uk, p, tk))(zx))(u_seq,
+                                                                   tvec)
+        d = vm(lambda uk, tk: h(zx, uk, p, tk))(u_seq, tvec)
+        return _smoothing_solution(u_seq, y, tvec, F, c, H, Q, R, y - d, m0,
+                                   P0)
+    if nx <= _PLANE_N and ny <= _PLANE_N:
+        Qp, Rp, yp = _m_split(Q), _m_split(R), _v_split(y)
+
+        def linearize_p(xb, Pb):
+            (Fd, cd, Omf), (Fh, dh, Omh) = _slr_linearize_p(
+                (dyn, h), (nx, ny), xb, Pb, W, u_seq, tvec, p, T)
+            return (Fd, cd, _madd_p(Qp, Omf), Fh, _madd_p(Rp, Omh),
+                    _vsub_p(yp, dh))
+
+        xb = tuple(m0[i].expand(T) for i in range(nx))
+        Pb = tuple(tuple(P0[i, j].expand(T) for j in range(nx))
+                   for i in range(nx))
+        for _ in range(iters - 1):
+            Fp2, cp2, Qe, Hp2, Re, ye = linearize_p(xb, Pb)
+            xtp, Ctp = _filtered_moments_pp(Fp2, cp2, Hp2, Qe, Re, ye, m0,
+                                            P0, T)
+            xb, Pb = _parallel_smooth_core_p(Fp2, cp2, Qe, xtp, Ctp, T)
+        Fp2, cp2, Qe, Hp2, Re, ye = linearize_p(xb, Pb)
+        xp, Rpred, xtp, Ctp, ep, Sp, _, Kp, lls = _parallel_filter_core_pp(
+            Fp2, cp2, Hp2, Qe, Re, ye, m0, P0, T)
+        gT, LT = _parallel_smooth_core_p(Fp2, cp2, Qe, xtp, Ctp, T)
+        xT = _v_join(gT)
+        xt = _v_join(xtp)
+        sol = KalmanFilteringSolution(
+            u=u_seq, y=y, x=_v_join(xp), xt=xt, R=_m_join(Rpred),
+            Rt=_m_join(Ctp), ll=lls.sum(), e=_v_join(ep), K=_m_join(Kp),
+            S=_m_join(Sp), extra=None, t=tvec,
+            ok=torch.isfinite(xT).all(-1), route=scan_route(nx, ny, xt))
+        return KalmanSmoothingSolution(sol=sol, xT=xT, RT=_m_join(LT))
+
+    # wide states: the SLR vmapped over the steps on stacked tensors
+    def linearize(xbar, Pbar):
+        def one(mk, Pk, uk, tk):
+            ((Fk, ck, Omf), (Hk, dk, Omh)), _ = _slr_many(
+                (lambda x: dyn(x, uk, p, tk), lambda x: h(x, uk, p, tk)),
+                mk, Pk, W, params)
+            return Fk, ck, Omf, Hk, dk, Omh
+
+        F, c, Omf, H, d, Omh = vm(one)(xbar, Pbar, u_seq, tvec)
+        return F, c, Q + Omf, H, R + Omh, y - d
+
+    xbar, Pbar = m0.expand(T, nx), P0.expand(T, nx, nx)
+    for _ in range(iters - 1):
+        F, c, Qe, H, Re, y_eff = linearize(xbar, Pbar)
+        _, _, xt, Rt, *_ = _parallel_filter_core(F, c, H, Qe, Re, y_eff, m0,
+                                                 P0)
+        xbar, Pbar = _parallel_smooth_core(F, c, Qe, xt, Rt)
+    F, c, Qe, H, Re, y_eff = linearize(xbar, Pbar)
+    return _smoothing_solution(u_seq, y, tvec, F, c, H, Qe, Re, y_eff, m0, P0)

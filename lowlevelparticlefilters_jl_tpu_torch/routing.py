@@ -27,6 +27,10 @@ only a wrapper tensor, not the batch or the tangents.
 ``"sequential"``; the bank (filters/bank.py) records
 ``"cuda_bank_kernel"``, ``"bank_kernel_plain"``, ``"bank_plane"``,
 ``"bank_sequential"`` or ``"bank_vmap"`` under ``"kf_bank_loglik"``.
+``smooth`` (smoothing.py) records a temporal-parallel route or
+``"sequential"`` (:func:`route_smooth`), and the FFBS particle smoother
+``"cuda_ffbs_kernel"`` (kernel J) or ``"ffbs_plain"``, under
+``"smooth"``.
 """
 from __future__ import annotations
 
@@ -227,3 +231,38 @@ def route_forward_trajectory(f, u, y, p, method: str):
     parallel path or a whole-scan kernel, or None for the sequential
     recursion."""
     return _route_kalman("forward_trajectory", f, u, y, p, method)
+
+
+def route_smooth(f, u, y, p, method: str, kwargs: dict):
+    """The temporal-parallel smoothers for a long trajectory: a plain KF
+    goes to ``parallel_rts_smooth``; a UKF (nx <= 8, additive dynamics)
+    to ``parallel_ukf_smooth`` and an EKF (nx <= 8) to
+    ``parallel_iekf_smooth``, the iterated smoothers, exact in one pass on
+    affine models.  Wanted on CUDA tensors from ``T_PARALLEL`` steps on,
+    or with ``method="parallel"``.  Returns None (and records
+    ``"sequential"`` under ``"smooth"``) for the sequential backward
+    pass."""
+    from .filters.ekf import ExtendedKalmanFilter
+    from .filters.kalman import KalmanFilter
+    from .filters.ukf import UnscentedKalmanFilter
+    from .parallel import temporal
+
+    _check_method(method)
+    T = y.shape[0]
+    fn = None
+    if (method != "sequential" and not kwargs
+            and not _under_batch_trace(f, u, y, p)
+            and _want_parallel(method, y, T)):
+        if type(f) is KalmanFilter and _kf_parallel_ok(f, T):
+            fn = temporal.parallel_rts_smooth
+        elif p is None and type(f) is UnscentedKalmanFilter and f.nx <= 8 \
+                and not f.augmented_dynamics:
+            fn = temporal.parallel_ukf_smooth
+        elif p is None and type(f) is ExtendedKalmanFilter and f.nx <= 8:
+            fn = temporal.parallel_iekf_smooth
+    if fn is None:
+        _record("smooth", "sequential")
+        return None
+    sm = fn(f, u, y, p)
+    _record("smooth", sm.sol.route)
+    return sm

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of the port's PF, KF-bank, temporal-parallel and
-whole-scan UKF/EKF calls goes.
+"""Where the time of the port's PF, KF-bank, temporal-parallel,
+whole-scan UKF/EKF and smoothing calls goes.
 
     python3 scripts/torch_stage_breakdown.py [pf] [bank] [parallel] [scan]
+                                             [smooth]
 
 Needs one CUDA card.  Runs the named sections (all without arguments),
 in f32:
@@ -17,6 +18,14 @@ in f32:
   and of the quadtank UKF (kernel G), stages: the callbacks' trace and
   library build (once, at first use), the admission probes, the drives,
   the constants, the kernel with its wrapper;
+- ``smooth``: the FFBS particle smoother ``pf.smooth`` at M = N = 1000,
+  T = 500 on the benchmark's 2-state model (bench.py:548-564), stages:
+  the forward pass, the terminal draw, the predicted means, the
+  whitening, kernel J with its wrapper; and the iterated UKF smoother
+  ``parallel_ukf_smooth`` on the quadtank model at T = 5e4
+  (bench.py:695-721) with iters = 1 and 4 (the difference over 3 is one
+  refinement iteration), stages of one iteration: the unscented SLR,
+  the filtered moments (elements and kernel K), the smoothing scan;
 
 first as whole calls, then stage by stage through the same internal
 functions in the verb's order.  Each time is the median of 7 (host
@@ -52,6 +61,25 @@ def median_ms(fn, reps=7):
     return statistics.median(times) * 1e3
 
 
+def events_ms(fn, reps):
+    """Mean ms per call of ``fn`` by CUDA events, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def sm_clock() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
 def device_profile(fn, reps=3):
     """(device ms per call summed over kernels, kernel launches per call,
     {kernel name: device ms per call} for the port's own kernels) from
@@ -60,8 +88,11 @@ def device_profile(fn, reps=3):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # acc_events: keep the events of every call.  The device events are
+    # divided by reps, so a profile that lost calls reads low; compare a
+    # kernel's figure here with its time by CUDA events
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -74,7 +105,7 @@ def device_profile(fn, reps=3):
     for e in kern:
         m = re.search(r"(reduce_kernel|apply_kernel|bank_loglik_kernel|"
                       r"pf_scan_kernel|akf_scan_kernel|ekf_scan_kernel|"
-                      r"ukf_scan_kernel)", e.name)
+                      r"ukf_scan_kernel|ffbs_backward_kernel)", e.name)
         if m:
             own[m.group(0)] = (own.get(m.group(0), 0.0)
                                + e.time_range.elapsed_us() / 1e3 / reps)
@@ -175,6 +206,144 @@ def whole_scan_section(dev, line):
           f"{sizes[1]}", flush=True)
 
 
+def smooth_section(dev, line):
+    """Stages of the FFBS smoother (kernel J) and of the iterated UKF
+    smoother (kernel K)."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch import convert
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import ffbs
+    from lowlevelparticlefilters_jl_tpu_torch.models.sigmapoints import (
+        ukf_weights)
+    from lowlevelparticlefilters_jl_tpu_torch.ops.resample import resample
+    from lowlevelparticlefilters_jl_tpu_torch.parallel import temporal as tp
+    from lowlevelparticlefilters_jl_tpu_torch.routing import (
+        seed_from_generator)
+    from lowlevelparticlefilters_jl_tpu_torch.smoothing import (
+        _predicted_means)
+
+    def profiled(tag, fn):
+        busy, n, own = device_profile(fn)
+        print(f"{tag} device busy {busy} ms/call, {n} kernel launches/call;"
+              f" kernels: {own}", flush=True)
+        return n
+
+    N = M = 1000
+    T = 500
+    kf64 = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, device="cpu")
+    _, u64, y64 = llpt.simulate(kf64, torch.full((T, 1), 0.3,
+                                                 dtype=torch.float64),
+                                torch.Generator().manual_seed(2))
+    u, y = u64.float().to(dev), y64.float().to(dev)
+    pf = convert.particle_filter_from_numpy(
+        N, *convert.linear_callbacks(A, B, C, device=dev), R1, R2, R1,
+        resample_threshold=0.1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tag = f"ffbs N={N} M={M} T={T}"
+    whole = lambda: pf.smooth(u, y, M=M, generator=gen)  # noqa: E731
+    line(f"{tag} whole pf.smooth", median_ms(whole))
+    profiled(tag, whole)
+    st = {}
+    d1 = pf.dynamics_density
+    tvec = torch.arange(T - 1, dtype=torch.float32, device=dev)
+
+    def forward():
+        st["sol"] = pf.forward_trajectory(u, y, generator=gen)
+
+    def terminal():
+        sol = st["sol"]
+        st["xb_T"] = sol.x[-1][resample(sol.we[-1], gen, M)]
+
+    def predicted():
+        sol = st["sol"]
+        st["xpred"] = _predicted_means(pf.dynamics, sol.x[:-1], sol.u[:-1],
+                                       tvec, None)
+
+    def whiten():
+        st["w"] = ffbs.whiten(st["xpred"], st["sol"].w[:-1], d1.chol())
+
+    def kernel_j():
+        zpred, wfc, c, Linv = st["w"]
+        ffbs.ffbs_backward_scan(zpred, wfc, c, st["sol"].x[:-1].contiguous(),
+                                st["xb_T"].contiguous(), Linv,
+                                d1.mean.contiguous(),
+                                seed_from_generator(gen))
+
+    for name, fn in (("forward pass (pf.forward_trajectory)", forward),
+                     ("terminal draw (resample + gather)", terminal),
+                     ("predicted means (vmapped dynamics)", predicted),
+                     ("whitening and centring", whiten),
+                     ("kernel J incl. wrapper and seed draw", kernel_j)):
+        line(f"{tag} {name}", median_ms(fn))
+    profiled(f"{tag} kernel J alone", kernel_j)
+    # J by CUDA events over short and long runs of back-to-back launches,
+    # the SM clock read beside each
+    zpred, wfc, c, Linv = st["w"]
+    args = (zpred, wfc, c, st["sol"].x[:-1].contiguous(),
+            st["xb_T"].contiguous(), Linv, d1.mean.contiguous(), 7)
+    for reps in (5, 100, 5):
+        clk = sm_clock()
+        print(f"{tag} kernel J by CUDA events over {reps} launches: "
+              f"{events_ms(lambda: ffbs.ffbs_backward_scan(*args), reps):.4f}"
+              f" ms/launch; SM clock before {clk}, after {sm_clock()}",
+              flush=True)
+
+    T = 50_000
+    g1 = lambda x: torch.sqrt(torch.abs(x) + 0.1)  # noqa: E731
+    ukf = llpt.make_ukf(
+        lambda x, u, p, t: x + 0.1 * torch.stack(
+            [-g1(x[0]) + 0.5 * g1(x[1]), -0.5 * g1(x[1]) + 0.1]),
+        lambda x, u, p, t: x, 1e-3 * torch.eye(2, device=dev),
+        1e-2 * torch.eye(2, device=dev), ny=2, nu=0,
+        d0=llpt.MvNormal(torch.ones(2, device=dev),
+                         0.1 * torch.eye(2, device=dev)))
+    yq = (1.0 + 0.1 * torch.randn(T, 2, generator=torch.Generator()
+                                  .manual_seed(3))).to(dev)
+    tag = f"iterated UKF smoother T={T}"
+    ms, launches = {}, {}
+    for iters in (1, 4):
+        call = lambda: tp.parallel_ukf_smooth(  # noqa: E731
+            ukf, None, yq, iters=iters)
+        ms[iters] = median_ms(call)
+        line(f"{tag} iters={iters} whole call", ms[iters])
+        launches[iters] = profiled(f"{tag} iters={iters}", call)
+    line(f"{tag} one refinement iteration ((iters 4 - iters 1) / 3)",
+         (ms[4] - ms[1]) / 3)
+    if launches[1] is not None:
+        print(f"{tag} launches per refinement iteration "
+              f"{(launches[4] - launches[1]) / 3}", flush=True)
+    nx = ny = 2
+    W = ukf_weights(ukf.weight_params, nx)
+    utv = torch.zeros(T, 0, device=dev)
+    tvec = torch.arange(T, dtype=torch.float32, device=dev)
+    m0, P0 = ukf.d0.mean, ukf.d0.cov
+    Qp = tp._m_split(tp._resolve_seq(ukf.R1, T))
+    Rp = tp._m_split(tp._resolve_seq(ukf.measurement_model.R2, T))
+    st = {"xb": tuple(m0[i].expand(T) for i in range(nx)),
+          "Pb": tuple(tuple(P0[i, j].expand(T) for j in range(nx))
+                      for i in range(nx))}
+
+    def slr():
+        (Fd, cd, Omf), (Fh, dh, Omh) = tp._slr_linearize_p(
+            (ukf.dynamics, ukf.measurement_model.measurement), (nx, ny),
+            st["xb"], st["Pb"], W, utv, tvec, None, T)
+        st["lin"] = (Fd, cd, tp._madd_p(Qp, Omf), Fh, tp._madd_p(Rp, Omh),
+                     tp._vsub_p(tp._v_split(yq), dh))
+
+    def filtered():
+        F, c, Qe, H, Re, ye = st["lin"]
+        st["f"] = tp._filtered_moments_pp(F, c, H, Qe, Re, ye, m0, P0, T)
+
+    def smoothed():
+        F, c, Qe = st["lin"][:3]
+        tp._parallel_smooth_core_p(F, c, Qe, *st["f"], T)
+
+    for name, fn in (("unscented SLR (_slr_linearize_p)", slr),
+                     ("filtered moments (elements + kernel K)", filtered),
+                     ("smoothing elements + kernel K", smoothed)):
+        line(f"{tag} one iteration: {name}", median_ms(fn))
+        profiled(f"{tag} one iteration: {name}", fn)
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -188,7 +357,8 @@ def main():
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    sections = set(sys.argv[1:]) or {"pf", "bank", "parallel", "scan"}
+    sections = set(sys.argv[1:]) or {"pf", "bank", "parallel", "scan",
+                                     "smooth"}
     kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2,
                                           dtype=torch.float32, device=dev)
     g = torch.Generator().manual_seed(0)
@@ -329,6 +499,8 @@ def main():
             line(f"{tag} {name}", median_ms(fn))
     if "scan" in sections:
         whole_scan_section(dev, line)
+    if "smooth" in sections:
+        smooth_section(dev, line)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

@@ -15,7 +15,7 @@ import lowlevelparticlefilters_jl_tpu_torch as llpt
 from lowlevelparticlefilters_jl_tpu_torch import convert
 from lowlevelparticlefilters_jl_tpu_torch.filters import bank as tbank
 from lowlevelparticlefilters_jl_tpu_torch.kernels import (
-    assoc_scan, bank_scan, noise, pf_scan, resample_route, ukf_scan)
+    assoc_scan, bank_scan, ffbs, noise, pf_scan, resample_route, ukf_scan)
 from lowlevelparticlefilters_jl_tpu_torch.ops import resample as trs
 
 pytestmark = pytest.mark.cuda
@@ -66,10 +66,11 @@ def test_systematic_gather_bitwise(cuda_device, nx):
     assert torch.equal(out.cpu(), ref)
 
 
-def _model(N, device, threshold=0.1, C_=C):
+def _model(N, device, threshold=0.1, C_=C, backend="torch"):
     f, g = convert.linear_callbacks(A, B, C_, device=device)
     return convert.particle_filter_from_numpy(
-        N, f, g, R1, R2, R1, resample_threshold=threshold, device=device)
+        N, f, g, R1, R2, R1, resample_threshold=threshold,
+        noise_backend=backend, device=device)
 
 
 def _data(T, seed=1):
@@ -417,3 +418,184 @@ def test_ukf_ekf_kf_routes_on_card(cuda_device):
     llpt.loglik(_quadtank(cuda_device), None, 1.0 + 0.1 * yc)
     assert llpt.last_route() == "cuda_fused_scan"
     assert counts() == (h0 + 3, g0 + 1, i0 + 1)
+
+
+# ---- FFBS (kernel J), the smoothers, kernel A's admission, reproducibility
+
+
+def _ffbs_inputs(dev, T, N, M, nx, seed, shift=10.0):
+    """Whitened inputs of kernel J (clouds away from the origin, every
+    97th column of weight -inf), and the seeds's arguments."""
+    g = torch.Generator().manual_seed(seed)
+    xf = shift + torch.randn(T - 1, N, nx, generator=g)
+    xpred = 0.97 * xf + 0.1 * torch.randn(T - 1, N, nx, generator=g)
+    wf = torch.randn(T - 1, N, generator=g)
+    wf[:, ::97] = float("-inf")
+    xb_T = shift + torch.randn(M, nx, generator=g)
+    L = torch.linalg.cholesky(0.02 * torch.eye(nx) + 0.01)
+    mu = 0.01 * torch.arange(nx, dtype=torch.float32)
+    zpred, wfc, c, Linv = ffbs.whiten(xpred.to(dev), wf.to(dev), L.to(dev))
+    return zpred, wfc, c, xf.to(dev), xb_T.to(dev), Linv, mu.to(dev)
+
+
+@pytest.mark.parametrize("nx,T,N,M", [(1, 5, 37, 5), (2, 20, 1000, 64),
+                                      (3, 6, 4099, 33), (8, 4, 300, 16)])
+def test_ffbs_kernel_matches_twin(cuda_device, nx, T, N, M):
+    """Kernel J against its twin on the same inputs: the MAP columns
+    (no noise) exactly, and with the same Philox stream at most 0.1 % of
+    the (t, m) draws apart (a near-tie broken by a one-ulp difference;
+    expected none: the kernel rounds every operation as the twin does);
+    never a -inf column; every row a forward particle."""
+    args = _ffbs_inputs(cuda_device, T, N, M, nx, seed=nx)
+    xf = args[3]
+    for noise_on in (False, True):
+        before = ffbs.FFBS_BACKWARD.launches
+        out, idx = ffbs.ffbs_backward_scan(*args, 123, noise=noise_on,
+                                           return_indices=True)
+        assert ffbs.FFBS_BACKWARD.launches == before + 1
+        ref, ridx = ffbs.ffbs_backward_plain(*args, 123, noise=noise_on,
+                                             return_indices=True)
+        if noise_on:
+            assert float((idx != ridx).float().mean()) <= 1e-3
+        else:
+            assert torch.equal(idx, ridx) and torch.equal(out, ref)
+        assert not bool((idx % 97 == 0).any())
+        for t in range(T - 1):
+            assert torch.equal(out[t], xf[t][idx[t].long()])
+        assert torch.equal(out[-1], args[4])
+
+
+def test_ffbs_kernel_refuses(cuda_device):
+    args = list(_ffbs_inputs(cuda_device, 3, 50, 4, 2, seed=0))
+    args[4] = args[4].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ffbs.ffbs_backward_scan(*args, 0)
+    args = _ffbs_inputs(cuda_device, 3, 50, 4, 9, seed=0)
+    with pytest.raises(ValueError, match="nx"):
+        ffbs.ffbs_backward_scan(*args, 0)
+
+
+def _rms_z(xb, kf, u, y):
+    """RMS over steps and states of (FFBS smoothed mean - RTS mean) /
+    sqrt(RTS variance), against the float64 CPU smoother of the exact
+    KF."""
+    ssol = llpt.rts_smooth(llpt.forward_trajectory(kf, u, y), kf)
+    z = (llpt.smoothed_mean(xb).double().cpu() - ssol.xT) / torch.diagonal(
+        ssol.RT, dim1=-2, dim2=-1).sqrt()
+    return float(z.square().mean().sqrt())
+
+
+def test_pf_smooth_on_card(cuda_device):
+    """``pf.smooth`` on CUDA tensors: one launch of kernel J, kernels B, C
+    and D in the forward pass, and a smoothed mean within 0.4 RTS
+    deviations (RMS) of the exact smoother: the plain loop gives 0.15-0.24
+    here (N = 1000 particles, M = 500 trajectories), a selection off by
+    one column about 1.5."""
+    pf = _model(1000, cuda_device, backend="kernel")
+    kf, u, y = _data(100, seed=4)
+    counts = lambda: (ffbs.FFBS_BACKWARD.launches,  # noqa: E731
+                      resample_route.SYSTEMATIC_GATHER.launches,
+                      noise.NORMAL.launches,
+                      noise.ADD_GAUSSIAN_NOISE.launches)
+    before = counts()
+    xb, ll = pf.smooth(u.float().to(cuda_device), y.float().to(cuda_device),
+                       M=500, generator=torch.Generator(device=cuda_device)
+                       .manual_seed(0))
+    assert llpt.last_route("smooth") == "cuda_ffbs_kernel"
+    after = counts()
+    assert after[0] == before[0] + 1
+    assert all(a > b for a, b in zip(after[1:], before[1:]))
+    assert xb.shape == (100, 500, 2) and bool(torch.isfinite(ll))
+    assert _rms_z(xb, kf, u, y) < 0.4
+
+
+def test_clamped_pf_routes_sequential_on_card(cuda_device):
+    """Kernel A's admission walks the callbacks: a clamp to ±5 that the
+    probes cannot see routes sequential; the unclamped filter takes A."""
+    pf = _model(10_000, cuda_device)
+    At, Bt = (torch.tensor(M, dtype=torch.float32, device=cuda_device)
+              for M in (A, B))
+    clamped = pf.replace(dynamics=lambda x, u, p, t: torch.clamp(
+        At @ x + Bt @ u, -5.0, 5.0))
+    _, u, y = _data(20)
+    uc, yc = u.float().to(cuda_device), y.float().to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    before = pf_scan.PF_LOGLIK_SCAN.launches
+    clamped.loglik(uc, yc, generator=g)
+    assert llpt.last_route("loglik") == "sequential"
+    assert pf_scan.PF_LOGLIK_SCAN.launches == before
+    pf.loglik(uc, yc, generator=g)
+    assert llpt.last_route("loglik") == "cuda_fused_scan"
+    assert pf_scan.PF_LOGLIK_SCAN.launches == before + 1
+
+
+def test_cumsum_has_one_order_on_card(cuda_device):
+    """The resampling cumsum gives the same bits call after call, and
+    agrees with PyTorch's to float32 rounding."""
+    we = torch.rand(100_000, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda_device) ** 8
+    first = trs._cumsum(we)
+    for _ in range(20):
+        assert torch.equal(trs._cumsum(we), first)
+    torch.testing.assert_close(first, torch.cumsum(we, 0), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["torch", "kernel"])
+def test_pf_forward_trajectory_reproducible_on_card(cuda_device, backend):
+    """Two seeded calls of the unfused PF forward pass give the same
+    particles, weights and ll, bit for bit, resampling included."""
+    pf = _model(100_000, cuda_device, backend=backend)
+    _, u, y = _data(50, seed=5)
+    uc, yc = u.float().to(cuda_device), y.float().to(cuda_device)
+    before = resample_route.SYSTEMATIC_GATHER.launches
+    sols = [pf.forward_trajectory(uc, yc, generator=torch.Generator(
+        device=cuda_device).manual_seed(7)) for _ in range(2)]
+    assert resample_route.SYSTEMATIC_GATHER.launches >= before + 2
+    for f in ("x", "w", "we", "ll"):
+        assert torch.equal(getattr(sols[0], f), getattr(sols[1], f)), f
+
+
+def test_smooth_routes_on_card(cuda_device):
+    """``smooth`` on CUDA tensors at T = 300: the KF takes
+    ``parallel_rts_smooth``, the quadtank UKF ``parallel_ukf_smooth`` and
+    the ``A x + 0.01 sin x`` EKF ``parallel_iekf_smooth`` (kernel K), each
+    within rtol 1e-3, atol 1e-4 of the same function run in float64 on
+    the CPU; ``method="sequential"`` and ``ukf.smooth(fused=True)`` (one
+    launch of kernel G) likewise against their float64 CPU runs."""
+    T = 300
+    tol = dict(rtol=1e-3, atol=1e-4)
+    kf, u, y = _data(T, seed=6)
+    kf32 = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2,
+                                            dtype=torch.float32,
+                                            device=cuda_device)
+    uc, yc = u.float().to(cuda_device), y.float().to(cuda_device)
+    ref = llpt.smooth(kf, u, y, method="sequential")
+    for method in ("auto", "sequential"):
+        got = llpt.smooth(kf32, uc, yc, method=method)
+        assert llpt.last_route("smooth") == (
+            "cuda_temporal_parallel" if method == "auto" else "sequential")
+        torch.testing.assert_close(got.xT.double().cpu(), ref.xT, **tol)
+        torch.testing.assert_close(got.RT.double().cpu(), ref.RT, **tol)
+    q32, q64 = _quadtank(cuda_device), _quadtank("cpu")
+    q64 = q64.replace(R1=q64.R1.double(), d0=llpt.MvNormal(
+        q64.d0.mean.double(), q64.d0.cov.double()),
+        measurement_model=q64.measurement_model.replace(
+            R2=q64.measurement_model.R2.double()))
+    yq = 1.0 + 0.1 * torch.randn(T, 2, generator=torch.Generator()
+                                 .manual_seed(9), dtype=torch.float64)
+    e32 = _cv_filters(cuda_device, nonlinear=True)
+    ye = torch.randn(T, 2, generator=torch.Generator().manual_seed(10),
+                     dtype=torch.float64)
+    for f32, f64, yy in ((q32, q64, yq), (e32, None, ye)):
+        got = llpt.smooth(f32, None, yy.float().to(cuda_device))
+        assert llpt.last_route("smooth") == "cuda_temporal_parallel"
+        assert bool(torch.isfinite(got.xT).all())
+        if f64 is not None:
+            want = llpt.smooth(f64, None, yy, method="parallel")
+            torch.testing.assert_close(got.xT.double().cpu(), want.xT, **tol)
+    g0 = ukf_scan.UKF_SCAN.launches
+    got = q32.smooth(None, yq.float().to(cuda_device), fused=True)
+    assert ukf_scan.UKF_SCAN.launches == g0 + 1
+    want = q64.smooth(None, yq)
+    torch.testing.assert_close(got.xT.double().cpu(), want.xT, **tol)

@@ -150,3 +150,33 @@ def test_plain_twin_philox_is_reproducible():
     c = pf_scan.pf_loglik_fused(pt, torch.tensor(us), torch.tensor(ys), 43)
     assert float(a[0]) == float(b[0]) and float(a[0]) != float(c[0])
     assert np.isfinite(float(a[0]))
+
+
+def test_static_walk_routes_a_clamped_callback_sequential(monkeypatch):
+    """``A x + B u`` clamped to ±5 is affine wherever the probes look (four
+    deviations of d0 out), so only the static walk of the lowered
+    callbacks (``ukf_scan.callbacks_affine``) keeps it from kernel A:
+    under ``method="fused"`` it routes sequential, while the unclamped
+    filter takes kernel A's twin.  The walk runs once per filter."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import ukf_scan
+
+    _, pt = _pair(0.1)
+    At, Bt = torch.tensor(A), torch.tensor(B)
+    clamped = pt.replace(dynamics=lambda x, u, p, t: torch.clamp(
+        At @ x + Bt @ u, -5.0, 5.0))
+    _, us, ys = _data(6)
+    u, y = torch.tensor(us), torch.tensor(ys)
+    assert pf_scan.affine_coefficients(clamped, u, torch.arange(6.0)) \
+        is not None
+    walks = []
+    walk = ukf_scan.callback_affine_in_x
+    monkeypatch.setattr(ukf_scan, "callback_affine_in_x",
+                        lambda *a: walks.append(1) or walk(*a))
+    g = torch.Generator().manual_seed(0)
+    clamped.loglik(u, y, generator=g, method="fused")
+    assert llpt.last_route("loglik") == "sequential"
+    for _ in range(2):
+        pt.loglik(u, y, generator=g, method="fused")
+        assert llpt.last_route("loglik") == "fused_scan_plain"
+    assert len(walks) == 1 + 2  # clamped: dynamics only; pt: both, once

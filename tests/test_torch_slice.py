@@ -114,6 +114,8 @@ def test_import_loads_no_jax():
             "import lowlevelparticlefilters_jl_tpu_torch.parallel.bank; "
             "import lowlevelparticlefilters_jl_tpu_torch.kernels.bank_scan; "
             "import lowlevelparticlefilters_jl_tpu_torch.kernels.assoc_scan; "
+            "import lowlevelparticlefilters_jl_tpu_torch.kernels.ffbs; "
+            "import lowlevelparticlefilters_jl_tpu_torch.smoothing; "
             "print(any(k == 'jax' or k.startswith('jax.') "
             "for k in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

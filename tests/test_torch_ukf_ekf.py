@@ -246,9 +246,9 @@ def test_constructors_and_sampling():
     x, _, y = ekf.replace(measurement_model=mm).simulate_correlated(
         u0, torch.Generator().manual_seed(1))
     assert x.shape == (20, 4) and bool(torch.isfinite(y).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ukf.smooth(None, y)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ekf.smooth(None, y)
+    for f in (ukf, ekf):  # the RTS smoothers, sequential on the CPU
+        ssol = f.smooth(u0, y)
+        assert ssol.xT.shape == (20, 4) and ssol.RT.shape == (20, 4, 4)
+        assert bool(torch.isfinite(ssol.xT).all())
     with pytest.raises(ValueError, match="d0"):
         llpt.make_ekf(ft, gt, None, torch.tensor(R2))
