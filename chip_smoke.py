@@ -56,9 +56,29 @@ exits non-zero without its result lines):
    against float64 CPU runs of the same function (T = 1e5, 5000, 2000),
    with ``method="sequential"`` and ``smooth_mbf``; medians of 5.
 
+13. PF state tracking on the benchmark's model at N = 1e5, T = 1000:
+   ``mean_trajectory(pf, u, y, generator=g)`` and ``pf_stats_fused`` (one
+   launch each of kernel A's moments mode), ``pf_segment_fused`` at
+   T = 100 (segment mode) and ``pf.loglik`` with a
+   ``TupleProduct(StudentT, Laplace)`` measurement density (A's
+   scalar-density weights); the means within ``TRACK_Z`` KF deviations
+   (RMS) of the float64 x(t|t), the variances within ``TRACK_VAR`` (RMS,
+   relative) of P(t|t); ``ll_local + lse(w_fin)`` of the segment equal to
+   the loglik mode's ll; the scalar-density ll within 1 % of the mean of
+   3 sequential-route runs; each mode against its twin at T = 200 (no
+   noise, the same Philox stream, the lattice case); medians of 5.
+14. kernel E against its twin at N = 1e5, nx = 2 and 8, random, U^20 and
+   single-particle weights, bitwise; ``pf.forward_trajectory`` with
+   ``exact_resample=True`` at N = 1e5, T = 100: one E launch a resample,
+   ll within 1 % of the KF, bitwise equal to the kernel-B run.
+15. ``AuxiliaryParticleFilter`` ``forward_trajectory`` at N = 1e5,
+   T = 1000 (the APF never scores y[0], about 1 % of |ll| at T = 100) and
+   ``AdvancedParticleFilter.loglik`` at T = 100, each with kernel B and
+   with E (``exact_resample``), bitwise equal, ll within 1 % of the KF.
+
 Launch counts are reset just before each path's run (phases 4-5, 6, 7,
-8, 9, 10, 11 and 12) and read just after it; every kernel of the path
-must have launched there.  The kernels line (with each kernel's bound: the larger of its
+8, 9, 10, 11, 12, 13, 14 and 15) and read just after it; every kernel of
+the path must have launched there.  The kernels line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over 67 T/s) and the card's
 ``nvidia-smi`` line come before the last line,
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -684,6 +704,339 @@ def ffbs_phase(dev, kernels, stats, launches, smi, data, model, kf):
         f"{bound(ffbs_bytes(big['T'], big['N'], FFBS_M, 2), ffbs_ops(big['T'], big['N'], FFBS_M, 2))}")
 
 
+#: phase 13's bounds (see the module doc): RMS z-score of the PF's
+#: filtered means against the float64 KF x(t|t), RMS relative error of its
+#: variances against P(t|t); ESS >= 0.1 N = 1e4 puts the Monte-Carlo error
+#: near 0.01 sd and 1.4 %
+TRACK_Z, TRACK_VAR = 0.05, 0.05
+T_TWIN_PF, T_SEG, T_ADV = 200, 100, 100  # phases 13-15
+
+
+def pf_step_ops(nx, ny, weight=None):
+    """Operations of kernel A per particle-step: the predict 4nx² + 4nx,
+    one Philox call and nx normals, the weight (the whitened Gaussian
+    2ny·nx + 2ny² + 4ny unless given) and the normalization ~12."""
+    w = 2 * ny * nx + 2 * ny * ny + 4 * ny if weight is None else weight
+    return 4 * nx * nx + 4 * nx + w + 12 + PHILOX_OPS + nx * NORMAL_OPS
+
+
+def pf_resample_ops(N, nres, nx):
+    """Per particle of each resampling step: the quantized scan, the slot
+    and its binary search, the row copy."""
+    return nres * N * (30 + 2 * math.ceil(math.log2(N)) + nx)
+
+
+def held_pf(what, got, want, fields=(), exact=False):
+    """A kernel-A mode against its twin: the resample count exactly, ll
+    within 1e-5 relative (or equal), the named outputs within rtol 2e-4,
+    atol 1e-5 (sums in another order); the largest absolute difference."""
+    llg, llw = float(got["ll"]), float(want["ll"])
+    require(float(got["nres"]) == float(want["nres"]),
+            f"{what}: resamples {float(got['nres'])} vs "
+            f"{float(want['nres'])}")
+    require(llg == llw if exact else abs(llg - llw) <= 1e-5 * abs(llw),
+            f"{what}: ll {llg} vs the twin's {llw}")
+    err = abs(llg - llw)
+    for name in fields:
+        require(torch.allclose(got[name], want[name], rtol=2e-4, atol=1e-5),
+                f"{what}: {name} within rtol 2e-4, atol 1e-5 of the twin")
+        err = max(err, float((got[name] - want[name]).abs().max()))
+    return err
+
+
+def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
+                    lattice_case):
+    """Phases 13-15: PF state tracking (kernel A's moments, segment and
+    scalar-density modes), kernel E, and the auxiliary and advanced
+    particle filters (see the module doc)."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import (
+        pf_scan, resample_route, resample_v2)
+    from lowlevelparticlefilters_jl_tpu_torch.ops import resample as ors
+
+    MOM, SEG, DEN = (pf_scan.PF_MOMENTS_SCAN, pf_scan.PF_SEGMENT_SCAN,
+                     pf_scan.PF_DENSITY_SCAN)
+    E, Bk = resample_v2.SYSTEMATIC_INDEX_GATHER, resample_route.SYSTEMATIC_GATHER
+    N = N_MAIN
+    g = torch.Generator(device=dev)
+    gcpu = torch.Generator().manual_seed(SEED + 13)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gcpu).to(dev)
+
+    def counts():
+        return {k.name: k.launches for k in kernels}
+
+    def resamples(sol, thresh=THRESH):
+        return int((1.0 / (sol.we ** 2).sum(-1) < thresh * sol.we.shape[-1])
+                   .sum())
+
+    # ---- 13. PF state tracking -------------------------------------------
+    u, y, ll_kf = data(T_MAIN, seed=13)
+    uc, yc = u.float().to(dev), y.float().to(dev)
+    ksol = llpt.forward_trajectory(kf, u, y)  # float64 x(t|t), P(t|t)
+    pf = model(N)
+    pfd = pf.replace(measurement_density=llpt.TupleProduct(
+        [llpt.StudentT(4.0, 0.0, 0.3), llpt.Laplace(0.0, 0.25)]))
+    x0, w0 = randn(N, 2), torch.full((N,), -math.log(N), device=dev)
+    for k in kernels:
+        k.launches = 0
+    means = llpt.mean_trajectory(pf, uc, yc, generator=g.manual_seed(SEED))
+    route = llpt.last_route("mean_trajectory")
+    require(route == "cuda_fused_scan" and MOM.launches == 1,
+            f"mean_trajectory: route {route}, {MOM.launches} launches")
+    m2, covs, ll2, nres2 = llpt.pf_stats_fused(pf, uc, yc, SEED)
+    ll_seg, x_fin, w_fin = llpt.pf_segment_fused(pf, uc[:T_SEG], yc[:T_SEG],
+                                                 SEED, x0, w0)
+    ll_d = float(pfd.loglik(uc, yc, generator=g.manual_seed(SEED)))
+    route_d = llpt.last_route("loglik")
+    path13 = counts()
+    require(path13["pf_moments_scan"] == 2 and path13["pf_segment_scan"] == 1
+            and path13["pf_density_scan"] == 1 and sum(path13.values()) == 4
+            and route_d == "cuda_fused_scan",
+            f"phase 13 launches {path13}, density route {route_d}")
+    for name in ("pf_moments_scan", "pf_segment_scan", "pf_density_scan"):
+        launches[name] = path13[name]
+    sd2 = torch.diagonal(ksol.Rt, dim1=-2, dim2=-1)
+    zs = [float((((mm.double().cpu() - ksol.xt) / sd2.sqrt()) ** 2).mean()
+                .sqrt()) for mm in (means, m2)]
+    vrel = float((((torch.diagonal(covs, dim1=-2, dim2=-1).double().cpu()
+                    - sd2) / sd2) ** 2).mean().sqrt())
+    rel2 = abs(float(ll2) - ll_kf) / abs(ll_kf)
+    require(max(zs) <= TRACK_Z and vrel <= TRACK_VAR and rel2 < 0.01
+            and means.shape == (T_MAIN, 2) and covs.shape == (T_MAIN, 2, 2),
+            f"means RMS z {zs} (bound {TRACK_Z}), variances RMS rel {vrel:.4g}"
+            f" (bound {TRACK_VAR}), stats ll rel {rel2:.3g}")
+    # segment: no resampling, so ll_local + lse(w_fin) is the loglik mode's
+    # ll from the same cloud and Philox stream
+    ll_full, _ = pf_scan.pf_loglik_fused(pf.replace(resample_threshold=0.0),
+                                         uc[:T_SEG], yc[:T_SEG], SEED, x0=x0)
+    seg_tot = float(ll_seg) + float(torch.logsumexp(w_fin, 0))
+    require(abs(seg_tot - float(ll_full)) <= 1e-5 * abs(float(ll_full))
+            and x_fin.shape == (N, 2) and bool(torch.isfinite(x_fin).all()),
+            f"segment ll_local + lse(w_fin) {seg_tot} vs loglik mode "
+            f"{float(ll_full)}")
+    lls_seq = [float(pfd.loglik(uc, yc, generator=g.manual_seed(s),
+                                method="sequential")) for s in (1, 2, 3)]
+    ref_d = statistics.mean(lls_seq)
+    rel_d = abs(ll_d - ref_d) / abs(ref_d)
+    require(rel_d < 0.01, f"scalar-density ll {ll_d} within 1 % of the "
+            f"sequential route's mean {ref_d} ({lls_seq})")
+    med_mean = host_median_ms(lambda: llpt.mean_trajectory(
+        pf, uc, yc, generator=g))
+    med_stats = host_median_ms(lambda: llpt.pf_stats_fused(pf, uc, yc, SEED))
+    med_dens = host_median_ms(lambda: pfd.loglik(uc, yc, generator=g))
+    log("tracking", f"N={N} T={T_MAIN}: mean_trajectory route {route}, "
+        f"means RMS z {zs[0]:.4f} (pf_stats_fused {zs[1]:.4f}), variances "
+        f"RMS rel {vrel:.4f} vs the float64 KF; stats ll {float(ll2)} KF "
+        f"{ll_kf} rel {rel2:.3g}; segment T={T_SEG} ll_local "
+        f"{float(ll_seg)} + lse(w_fin) = {seg_tot} vs loglik mode "
+        f"{float(ll_full)}; TupleProduct(StudentT, Laplace) ll {ll_d} vs "
+        f"sequential mean {ref_d} rel {rel_d:.3g}; launches {path13}")
+    log("tracking", f"medians of 5: mean_trajectory {med_mean:.3f} ms, "
+        f"pf_stats_fused {med_stats:.3f} ms, pf.loglik (scalar density) "
+        f"{med_dens:.3f} ms ({smi})")
+
+    # each mode against its twin at T = 200: no noise and the same Philox
+    # stream at threshold 0 (no resampling: sums in another order only),
+    # and the lattice case (exact resampling)
+    ut, yt = uc[:T_TWIN_PF], yc[:T_TWIN_PF]
+    args_t = pf_scan.scan_inputs(pf, ut, yt)
+    args_d = pf_scan.scan_inputs(pfd, ut, yt)
+    dens = pf_scan.scan_density(pfd, dev)
+    w0r = randn(N)
+    err = dict(pf_moments_scan=0.0, pf_segment_scan=0.0, pf_density_scan=0.0)
+    for noise_kind in ("none", "philox"):
+        kw = dict(N=N, thresh=0.0, seed=SEED, noise=noise_kind, x0=x0)
+        err["pf_moments_scan"] = max(err["pf_moments_scan"], held_pf(
+            f"moments {noise_kind}", pf_scan.pf_scan(*args_t, moments=2, **kw),
+            pf_scan.pf_scan_plain(*args_t, moments=2, **kw),
+            ("means", "covs")))
+        seg = dict(kw, w0=w0r, segment=True)
+        got, want = (f(*args_t, **seg) for f in (pf_scan.pf_scan,
+                                                 pf_scan.pf_scan_plain))
+        require(torch.allclose(got["x_fin"], want["x_fin"], rtol=1e-5,
+                               atol=1e-5)
+                and torch.allclose(got["w_fin"], want["w_fin"], rtol=1e-5,
+                                   atol=1e-4),
+                f"segment {noise_kind}: x_fin, w_fin against the twin")
+        err["pf_segment_scan"] = max(err["pf_segment_scan"], held_pf(
+            f"segment {noise_kind}", got, want))
+        err["pf_density_scan"] = max(err["pf_density_scan"], held_pf(
+            f"density {noise_kind}", pf_scan.pf_scan(*args_d, dens=dens, **kw),
+            pf_scan.pf_scan_plain(*args_d, dens=dens, **kw)))
+    pf4, u4, y4, x04 = lattice_case(N, T_TWIN_PF, dev)
+    args4 = pf_scan.scan_inputs(pf4, u4, y4)
+    kw4 = dict(N=N, thresh=float(pf4.resample_threshold), seed=SEED,
+               noise="none", x0=x04)
+    got, want = (f(*args4, moments=2, **kw4) for f in (
+        pf_scan.pf_scan, pf_scan.pf_scan_plain))
+    require(torch.equal(got["means"], want["means"])
+            and 1 <= float(want["nres"]) < T_TWIN_PF,
+            "moments lattice: means equal, some resamples")
+    held_pf("moments lattice", got, want, ("covs",), exact=True)
+    log("tracking", f"modes against their twins at T={T_TWIN_PF}: largest "
+        f"differences {err}; lattice {float(want['nres'])} resamples, means "
+        f"equal")
+
+    # kernel times at the main path's shape, twins at T = 200
+    args_m = pf_scan.scan_inputs(pf, uc, yc)
+    args_md = pf_scan.scan_inputs(pfd, uc, yc)
+    kw_m = dict(N=N, thresh=THRESH, seed=SEED)
+    nres_m = float(pf_scan.pf_scan(*args_m, moments=2, **kw_m)["nres"])
+    nres_d = float(pf_scan.pf_scan(*args_md, dens=dens, **kw_m)["nres"])
+    in_bytes = sum(a.numel() * a.element_size() for a in args_m) + 8
+    np_ = 3  # pairs at nx = 2
+    stats["pf_moments_scan"] = dict(
+        max_abs_err=err["pf_moments_scan"], T=T_MAIN, plain_T=T_TWIN_PF,
+        library_ms=None,  # no PyTorch call filters
+        ms=cuda_ms(lambda: pf_scan.pf_scan(*args_m, moments=2, **kw_m), 5),
+        plain_ms=cuda_ms(lambda: pf_scan.pf_scan_plain(
+            *args_t, moments=2, **kw_m), 1),
+        # A's work plus, per particle-step, the weighted sums (2 nx), the
+        # centring (nx) and the pair products (3 per pair)
+        **bound(in_bytes + 4 * T_MAIN * (2 + 4),
+                N * T_MAIN * (pf_step_ops(2, 2) + 3 * 2 + 3 * np_)
+                + pf_resample_ops(N, nres_m, 2)))
+    kw_s = dict(N=N, thresh=THRESH, seed=SEED, x0=x0, w0=w0, segment=True)
+    stats["pf_segment_scan"] = dict(
+        max_abs_err=err["pf_segment_scan"], T=T_MAIN, plain_T=T_TWIN_PF,
+        library_ms=None,
+        ms=cuda_ms(lambda: pf_scan.pf_scan(*args_m, **kw_s), 5),
+        plain_ms=cuda_ms(lambda: pf_scan.pf_scan_plain(*args_t, **kw_s), 1),
+        # the inputs, x0 and w0 in, x_fin and w_fin out; no resampling
+        **bound(in_bytes + 2 * 4 * N * 3, N * T_MAIN * pf_step_ops(2, 2)))
+    stats["pf_density_scan"] = dict(
+        max_abs_err=err["pf_density_scan"], T=T_MAIN, plain_T=T_TWIN_PF,
+        library_ms=None,
+        ms=cuda_ms(lambda: pf_scan.pf_scan(*args_md, dens=dens, **kw_m), 5),
+        plain_ms=cuda_ms(lambda: pf_scan.pf_scan_plain(
+            *args_d, dens=dens, **kw_m), 1),
+        # the weight: ŷ and e (2 ny nx + ny), StudentT 7, Laplace 4, the
+        # sum ny
+        **bound(in_bytes + 4 * 2 * 7,
+                N * T_MAIN * pf_step_ops(2, 2, weight=8 + 2 + 7 + 4 + 2)
+                + pf_resample_ops(N, nres_d, 2)))
+    for name in ("pf_moments_scan", "pf_segment_scan", "pf_density_scan"):
+        log(f"A {name}", f"N={N} T={T_MAIN}: {stats[name]}")
+
+    # ---- 14. kernel E -------------------------------------------------------
+    worst_e = 0.0
+    for nx in (2, 8):
+        x = randn(N, nx)
+        for kind in ("random", "skewed", "single"):
+            we = torch.rand(N, generator=gcpu, dtype=torch.float64)
+            if kind == "skewed":
+                we = we ** 20
+            elif kind == "single":
+                we = torch.zeros(N, dtype=torch.float64)
+                we[N // 3] = 1.0
+            K = ors._systematic_slots((we / we.sum()).to(dev), torch.tensor(
+                0.37, dtype=torch.float64, device=dev), N)
+            out, j = resample_v2.systematic_index_gather(x, K)
+            ref, jr = resample_v2.systematic_index_gather_plain(x, K)
+            require(torch.equal(out, ref) and torch.equal(j, jr),
+                    f"E bitwise, nx={nx} {kind}")
+            require(kind != "single" or bool((j == N // 3).all()),
+                    "E single particle")
+            worst_e = max(worst_e, float((out - ref).abs().max()))
+            if nx == 2 and kind == "skewed":
+                x2, K2 = x, K
+    ar = torch.arange(N, dtype=torch.int32, device=dev)
+    lib_e = cuda_ms(lambda: x2.index_select(0, torch.searchsorted(
+        K2, ar, right=True).clamp_(max=N - 1)), 20)
+    stats["systematic_index_gather"] = dict(
+        max_abs_err=worst_e, N=N, nx=2,
+        # searchsorted + index_select is two PyTorch calls, not one
+        library_ms=None,
+        ms=cuda_ms(lambda: resample_v2.systematic_index_gather(x2, K2), 50),
+        plain_ms=cuda_ms(lambda: resample_v2.systematic_index_gather_plain(
+            x2, K2), 20),
+        **bound(4 * (2 * N * 2 + 2 * N),
+                N * (2 * math.ceil(math.log2(N)) + 2)))
+    log("E systematic_index_gather", f"bitwise at N={N}, nx 2 and 8, random,"
+        f" U^20 and single-particle weights; searchsorted + index_select "
+        f"(two calls) {lib_e:.4f} ms; {stats['systematic_index_gather']}")
+    u14, y14, ll_kf14 = data(100, seed=14)
+    u14c, y14c = u14.float().to(dev), y14.float().to(dev)
+    for k in kernels:
+        k.launches = 0
+    sol_e = pf.replace(exact_resample=True).forward_trajectory(
+        u14c, y14c, generator=g.manual_seed(SEED))
+    path14 = counts()
+    n14 = resamples(sol_e)
+    sol_b = pf.forward_trajectory(u14c, y14c, generator=g.manual_seed(SEED))
+    rel14 = abs(float(sol_e.ll) - ll_kf14) / abs(ll_kf14)
+    require(path14["systematic_index_gather"] == n14 >= 1
+            and path14["systematic_gather"] == 0 and rel14 < 0.01
+            and Bk.launches == n14,
+            f"exact_resample: E launches {path14} vs {n14} resamples, B "
+            f"{Bk.launches}; ll rel {rel14:.3g}")
+    require(all(torch.equal(getattr(sol_e, f), getattr(sol_b, f))
+                for f in ("x", "w", "we", "ll")),
+            "exact_resample (E) and default (B) runs are bitwise equal")
+    launches["systematic_index_gather"] = path14["systematic_index_gather"]
+    log("E", f"forward_trajectory exact_resample N={N} T=100: {n14} "
+        f"resamples, E launches {path14['systematic_index_gather']}, ll "
+        f"{float(sol_e.ll)} KF {ll_kf14} rel {rel14:.3g}; bitwise equal to "
+        f"the kernel-B run")
+
+    # ---- 15. the auxiliary and advanced particle filters -------------------
+    # the APF's correct step only normalizes, so y[0] is never scored (as
+    # in the reference), about 1 % of |ll| at T = 100: T = 1000 here
+    A_, B_, C_ = (torch.tensor(M, dtype=torch.float32, device=dev)
+                  for M in ([[0.97043, -0.097368], [0.097368, 0.970437]],
+                            [[0.1], [0.0]], [[1.0, 0.0], [0.0, 1.0]]))
+    L1_ = torch.linalg.cholesky(pf.dynamics_density.cov)
+    dm_ = pf.measurement_density
+
+    def advanced(exact):
+        return llpt.AdvancedParticleFilter(
+            N=N, dynamics=lambda x, u, p, t, z: A_ @ x + B_ @ u + (
+                0 if z is None else L1_ @ z),
+            measurement=lambda x, u, p, t, z: C_ @ x,
+            measurement_likelihood=lambda x, u, y, p, t: dm_.logpdf(
+                y - C_ @ x),
+            initial_density=pf.initial_density, resample_threshold=THRESH,
+            exact_resample=exact)
+
+    u15, y15, ll_kf15 = data(T_ADV, seed=15)
+    u15c, y15c = u15.float().to(dev), y15.float().to(dev)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    sol_a = llpt.AuxiliaryParticleFilter(pf=pf).forward_trajectory(
+        uc, yc, generator=g.manual_seed(SEED))
+    torch.cuda.synchronize()
+    t_apf = time.perf_counter() - t0
+    sol_ae = llpt.AuxiliaryParticleFilter(
+        pf=pf.replace(exact_resample=True)).forward_trajectory(
+        uc, yc, generator=g.manual_seed(SEED))
+    ll_adv = float(advanced(False).loglik(u15c, y15c,
+                                          generator=g.manual_seed(SEED)))
+    ll_adve = float(advanced(True).loglik(u15c, y15c,
+                                          generator=g.manual_seed(SEED)))
+    path15 = counts()
+    adv_res = path15["systematic_gather"] - (T_MAIN - 1)
+    rel_a = abs(float(sol_a.ll) - ll_kf) / abs(ll_kf)
+    rel_adv = abs(ll_adv - ll_kf15) / abs(ll_kf15)
+    require(adv_res >= 1 and path15["systematic_index_gather"]
+            == T_MAIN - 1 + adv_res,
+            f"phase 15 launches {path15}: B and E once a predict of the APF "
+            f"and once a resample of the advanced filter")
+    require(all(torch.equal(getattr(sol_a, f), getattr(sol_ae, f))
+                for f in ("x", "w", "we", "ll")) and ll_adv == ll_adve,
+            "APF and advanced filter: E runs bitwise equal to B runs")
+    require(rel_a < 0.01 and rel_adv < 0.01,
+            f"APF ll {float(sol_a.ll)} vs KF {ll_kf} (rel {rel_a:.3g}), "
+            f"advanced ll {ll_adv} vs KF {ll_kf15} (rel {rel_adv:.3g})")
+    launches["systematic_index_gather"] += path15["systematic_index_gather"]
+    log("APF", f"N={N} T={T_MAIN}: ll {float(sol_a.ll)} KF {ll_kf} rel "
+        f"{rel_a:.3g}, one forward_trajectory {t_apf * 1e3:.1f} ms; advanced "
+        f"PF T={T_ADV}: ll {ll_adv} KF {ll_kf15} rel {rel_adv:.3g}; E runs "
+        f"bitwise equal to B runs; launches {path15}")
+
+
 def smoother_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2):
     """Phase 12: the RTS family on CUDA tensors (see the module doc)."""
     import lowlevelparticlefilters_jl_tpu_torch as llpt
@@ -784,6 +1137,7 @@ def smoother_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -796,7 +1150,7 @@ def main():
     from lowlevelparticlefilters_jl_tpu_torch.filters import bank as tbank
     from lowlevelparticlefilters_jl_tpu_torch.kernels import (
         _lib, assoc_scan, bank_scan, ffbs, noise, pf_scan, resample_route,
-        ukf_scan)
+        resample_v2, ukf_scan)
     from lowlevelparticlefilters_jl_tpu_torch.ops import resample as ors
     from lowlevelparticlefilters_jl_tpu_torch.parallel import temporal
 
@@ -804,7 +1158,9 @@ def main():
     kernels = [pf_scan.PF_LOGLIK_SCAN, resample_route.SYSTEMATIC_GATHER,
                noise.NORMAL, noise.ADD_GAUSSIAN_NOISE, bank_scan.BANK_LOGLIK,
                ukf_scan.UKF_SCAN, ukf_scan.AKF_SCAN, ukf_scan.EKF_SCAN,
-               ffbs.FFBS_BACKWARD, assoc_scan.ASSOC_SCAN]
+               ffbs.FFBS_BACKWARD, assoc_scan.ASSOC_SCAN,
+               pf_scan.PF_MOMENTS_SCAN, pf_scan.PF_SEGMENT_SCAN,
+               pf_scan.PF_DENSITY_SCAN, resample_v2.SYSTEMATIC_INDEX_GATHER]
     stats = {k.name: {} for k in kernels}
     launches = {}
 
@@ -996,16 +1352,8 @@ def main():
     args = pf_scan.scan_inputs(pf, uc, yc)
     kw = dict(N=N_MAIN, thresh=THRESH, seed=SEED)
     nres = float(pf_scan.pf_loglik_scan(*args, **kw)[1])
-    nx_, ny_ = 2, 2
-    # per particle-step: predict 4nx^2 + 4nx, one Philox call and nx
-    # normals, the whitened Gaussian weight 2ny nx + 2ny^2 + 4ny, the
-    # normalization ~12; per particle of a resampling step the quantized
-    # scan, the slot and its binary search
-    ops_a = (N_MAIN * T_MAIN * (4 * nx_ ** 2 + 4 * nx_ + 2 * ny_ * nx_
-                                + 2 * ny_ ** 2 + 4 * ny_ + 12 + PHILOX_OPS
-                                + nx_ * NORMAL_OPS)
-             + nres * N_MAIN * (30 + 2 * math.ceil(math.log2(N_MAIN))
-                                + nx_))
+    ops_a = (N_MAIN * T_MAIN * pf_step_ops(2, 2)
+             + pf_resample_ops(N_MAIN, nres, 2))
     bytes_a = sum(a.numel() * a.element_size() for a in args
                   if isinstance(a, torch.Tensor)) + 8
     stats["pf_loglik_scan"] = dict(
@@ -1305,6 +1653,10 @@ def main():
     whole_scan_phases(dev, kernels, stats, launches, smi)
     ffbs_phase(dev, kernels, stats, launches, smi, data, model, kf)
     smoother_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2)
+    tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
+                    lattice_case)
+    log("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
+        f"build included")
 
     print(json.dumps({"kernels": [dict(
         name=k.name, route="cuda", source=k.source, replaces=k.replaces,

@@ -16,9 +16,10 @@ import torch
 
 from .filters.ekf import ExtendedKalmanFilter, make_ekf
 from .filters.kalman import KalmanFilter
-from .filters.particle import ParticleFilter
+from .filters.particle import AdvancedParticleFilter, ParticleFilter
 from .filters.ukf import UnscentedKalmanFilter, make_ukf
 from .kernels._lib import default_device
+from .ops import distributions as dist
 from .ops.mvnormal import MvNormal
 from .utils.solutions import KalmanFilteringSolution, ParticleFilteringSolution
 
@@ -55,25 +56,77 @@ def kalman_filter_from_numpy(A, B, C, D, R1, R2, d0_mean=None, d0_cov=None,
                         Ts=Ts, alpha=alpha)
 
 
+def density_from_numpy(d, *, dtype=torch.float32, device=None):
+    """The port's counterpart of a scalar-family density or a
+    ``TupleProduct`` of them, read field by field from any object of the
+    same class name and fields (the JAX package's among them).  A Python
+    number stays one, so kernel A admits the density as the JAX kernel
+    does; an array parameter becomes a tensor."""
+    name = type(d).__name__
+    if name == "TupleProduct":
+        return dist.TupleProduct([density_from_numpy(c, dtype=dtype,
+                                                     device=device)
+                                  for c in d.dists])
+    cls = {c.__name__: c for c in dist.SCALAR_FAMILIES}.get(name)
+    if cls is None:
+        raise TypeError(f"not a scalar-family density: {name}")
+    import dataclasses
+
+    vals = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(d, f.name)
+        vals[f.name] = v if isinstance(v, (int, float)) else _t(
+            v, dtype, default_device(device))
+    return cls(**vals)
+
+
 def particle_filter_from_numpy(N: int, dynamics: Callable,
                                measurement: Callable, R1, R2, d0_cov, *,
                                R1_mean=None, R2_mean=None, d0_mean=None,
+                               measurement_density=None,
                                resample_threshold: float = 0.1,
                                resampling_strategy: str = "systematic",
+                               exact_resample: bool = False,
                                Ts: float = 1.0, noise_backend: str = "torch",
                                dtype=torch.float32, device=None
                                ) -> ParticleFilter:
     """A bootstrap :class:`ParticleFilter` with Gaussian densities from
-    arrays and the torch callbacks ``dynamics``/``measurement``."""
+    arrays and the torch callbacks ``dynamics``/``measurement``.  A
+    ``measurement_density`` object (see :func:`density_from_numpy`)
+    takes the place of N(R2_mean, R2)."""
     device = default_device(device)
+    dm = (_density(R2_mean, R2, dtype, device) if measurement_density is None
+          else measurement_density)
     return ParticleFilter(
         N=N, dynamics=dynamics, measurement=measurement,
         dynamics_density=_density(R1_mean, R1, dtype, device),
-        measurement_density=_density(R2_mean, R2, dtype, device),
+        measurement_density=dm,
         initial_density=_density(d0_mean, d0_cov, dtype, device),
         resample_threshold=resample_threshold,
-        resampling_strategy=resampling_strategy, Ts=Ts,
-        noise_backend=noise_backend)
+        resampling_strategy=resampling_strategy,
+        exact_resample=exact_resample, Ts=Ts, noise_backend=noise_backend)
+
+
+def advanced_particle_filter_from_numpy(
+        N: int, dynamics: Callable, measurement: Callable,
+        measurement_likelihood: Callable, d0_cov, *, d0_mean=None,
+        resample_threshold: float = 0.5,
+        resampling_strategy: str = "systematic",
+        exact_resample: bool = False, Ts: float = 1.0, nu: int = -1,
+        ny: int = -1, noise_dim: int = -1, dtype=torch.float32,
+        device=None) -> AdvancedParticleFilter:
+    """An :class:`AdvancedParticleFilter` with the initial density from
+    arrays around the torch callbacks (``dynamics(x, u, p, t, noise)``
+    with ``noise`` standard normals or None)."""
+    device = default_device(device)
+    return AdvancedParticleFilter(
+        N=N, dynamics=dynamics, measurement=measurement,
+        measurement_likelihood=measurement_likelihood,
+        initial_density=_density(d0_mean, d0_cov, dtype, device),
+        resample_threshold=resample_threshold,
+        resampling_strategy=resampling_strategy,
+        exact_resample=exact_resample, Ts=Ts, nu=nu, ny=ny,
+        noise_dim=noise_dim)
 
 
 def ukf_from_numpy(dynamics: Callable, measurement: Callable, R1, R2,

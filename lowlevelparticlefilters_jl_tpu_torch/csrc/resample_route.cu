@@ -19,20 +19,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "slots.cuh"
 
-__device__ __forceinline__ int64_t upper_bound(const int32_t* __restrict__ K,
-                                               int64_t n, int64_t k) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if ((int64_t)K[mid] <= k)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
+namespace {
 
 template <typename T>
 __global__ void systematic_gather_kernel(const T* __restrict__ x,
@@ -41,7 +30,7 @@ __global__ void systematic_gather_kernel(const T* __restrict__ x,
                                          int nx) {
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= N) return;
-  int64_t j = upper_bound(K, N, k);
+  int64_t j = llpf_upper_bound(K, N, k);
   if (j > N - 1) j = N - 1;
   for (int d = 0; d < nx; ++d) out[k * nx + d] = x[j * nx + d];
 }

@@ -44,9 +44,10 @@ _SIGNATURES = {
     "llpf_normal": [_P, _I64, _U64, _U32, _U32, _P],
     "llpf_add_gaussian_noise": [_P, _P, _P, _I64, _I, _U64, _U32, _P],
     "llpf_systematic_gather": [_P, _P, _P, _I64, _I, _I, _P],
-    "llpf_pf_scan_grid": [_I, _P],
-    "llpf_pf_loglik_scan": [_P] * 19 + [_I, _I, _I, _I, _F, _F, _F, _I, _I,
-                                        _U64, _I, _P],
+    "llpf_systematic_index_gather": [_P, _P, _P, _P, _I64, _I, _I, _P],
+    "llpf_pf_scan_grid": [_I, _I, _P],
+    "llpf_pf_scan": [_P] * 27 + [_I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I,
+                                 _I, _U64, _I, _P],
     "llpf_assoc_scan": [_P, _P, _P, _I64, _I64, _I, _I, _P],
     "llpf_bank_loglik": [_P, _I, _P, _P, _I64, _P, _P, _I64, _I, _I, _I, _I,
                          _P],

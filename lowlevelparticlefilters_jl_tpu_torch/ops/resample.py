@@ -134,3 +134,20 @@ def resample(we: torch.Tensor, generator=None, M: Optional[int] = None,
     except KeyError:
         raise ValueError(f"unknown resampling strategy {strategy!r}") from None
     return fn(we, generator, M)
+
+
+def resample_gather(x: torch.Tensor, we: torch.Tensor, generator=None,
+                    strategy: ResamplingStrategy = "systematic",
+                    exact: bool = False) -> torch.Tensor:
+    """``x[resample(we)]`` as the particle filters resample: systematic
+    through kernel B's gather, or with ``exact`` through kernel E, which
+    forms the index vector ``j`` and gathers ``x[j]`` in one launch (the
+    JAX package's ``exact_resample`` branch); the two draw the same r and
+    K, so their results are bitwise equal.  Other strategies index."""
+    if strategy != "systematic":
+        return x[resample(we, generator, x.shape[0], strategy=strategy)]
+    if exact:
+        from ..kernels.resample_v2 import fused_systematic_gather
+
+        return fused_systematic_gather(x, we, generator)[0]
+    return resample_systematic_gather(x, we, generator)

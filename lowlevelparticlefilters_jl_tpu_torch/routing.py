@@ -30,7 +30,9 @@ only a wrapper tensor, not the batch or the tangents.
 ``smooth`` (smoothing.py) records a temporal-parallel route or
 ``"sequential"`` (:func:`route_smooth`), and the FFBS particle smoother
 ``"cuda_ffbs_kernel"`` (kernel J) or ``"ffbs_plain"``, under
-``"smooth"``.
+``"smooth"``.  ``mean_trajectory`` of a particle filter records
+``"cuda_fused_scan"`` (kernel A in its moments mode),
+``"fused_scan_plain"`` or ``"sequential"`` under ``"mean_trajectory"``.
 """
 from __future__ import annotations
 
@@ -113,6 +115,31 @@ def route_pf_loglik(pf, u, y, p, generator, state0, method: str):
                             coef=coef)
     _record("loglik", "cuda_fused_scan" if y.is_cuda else "fused_scan_plain")
     return ll
+
+
+def route_pf_mean_trajectory(pf, u, y, p, generator, method: str):
+    """The filtered means ``[T, nx]`` from kernel A's moments mode
+    (``pf_mean_fused``) when wanted (CUDA tensors under ``"auto"``, or
+    ``"fused"``) and admitted, with a generator and ``p`` unchanged;
+    None (and ``"sequential"`` recorded) when ``forward_trajectory`` and
+    the weighted mean should run."""
+    from .kernels.pf_scan import kernel_admits, pf_mean_fused
+
+    _check_method(method)
+    wanted = method == "fused" or (method == "auto" and y.is_cuda)
+    coef = None
+    if (wanted and generator is not None
+            and (p is None or p is getattr(pf, "p", None))
+            and not _under_batch_trace(pf, u, y, p)):
+        coef = kernel_admits(pf, u, y)
+    if coef is None:
+        _record("mean_trajectory", "sequential")
+        return None
+    means, _, _ = pf_mean_fused(pf, u, y, seed_from_generator(generator),
+                                coef=coef)
+    _record("mean_trajectory",
+            "cuda_fused_scan" if y.is_cuda else "fused_scan_plain")
+    return means
 
 
 def _kf_parallel_ok(kf, T: int) -> bool:

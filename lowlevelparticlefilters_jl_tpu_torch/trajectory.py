@@ -133,3 +133,48 @@ def weighted_cov(x: torch.Tensor, we: torch.Tensor) -> torch.Tensor:
     cov = torch.einsum("...n,...ni,...nj->...ij", we, d, d)
     corr = 1.0 / (1.0 - torch.square(we).sum(-1))
     return cov * corr[..., None, None]
+
+
+def weighted_quantile(x: torch.Tensor, we: torch.Tensor, q) -> torch.Tensor:
+    """Weighted quantile ``q`` per dimension by inverting the weighted
+    CDF: ``x`` [..., N, nx], ``we`` [..., N] -> [..., nx]."""
+    order = torch.argsort(x, dim=-2, stable=True)
+    xs = torch.take_along_dim(x, order, dim=-2)
+    ws = torch.take_along_dim(we[..., None].expand_as(x), order, dim=-2)
+    cdf = torch.cumsum(ws, dim=-2)
+    cdf = cdf / cdf[..., -1:, :]
+    idx = (cdf < torch.as_tensor(q, dtype=cdf.dtype, device=cdf.device)
+           ).sum(-2).clamp(0, x.shape[-2] - 1)
+    return torch.take_along_dim(xs, idx[..., None, :], dim=-2)[..., 0, :]
+
+
+def mean_trajectory(x, we=None, y=None, *, p=None,
+                    generator: Optional[torch.Generator] = None,
+                    method: str = "auto") -> torch.Tensor:
+    """The weighted mean along a particle trajectory, in two forms:
+
+    - ``mean_trajectory(x [T, N, nx], we [T, N])`` reduces a stored
+      solution;
+    - ``mean_trajectory(pf, u, y, generator=g)`` runs the filter and
+      returns its filtered means ``[T, nx]``: on CUDA tensors an admitted
+      bootstrap PF runs kernel A in its moments mode (the cloud never
+      leaves the card, only the means are written;
+      ``routing.route_pf_mean_trajectory``), otherwise
+      ``forward_trajectory`` and the weighted mean.
+    """
+    if not hasattr(x, "forward_trajectory"):
+        return weighted_mean(x, we)
+    from .routing import route_pf_mean_trajectory
+
+    f, u = x, we
+    means = route_pf_mean_trajectory(f, u, y, p, generator, method)
+    if means is not None:
+        return means
+    sol = f.forward_trajectory(u, y, p, generator=generator)
+    return weighted_mean(sol.x, sol.we)
+
+
+def mode_trajectory(x: torch.Tensor, we: torch.Tensor) -> torch.Tensor:
+    """The highest-weight particle of every step: [T, N, nx] -> [T, nx]."""
+    idx = torch.argmax(we, dim=-1)
+    return torch.take_along_dim(x, idx[..., None, None], dim=-2)[..., 0, :]

@@ -3,7 +3,7 @@
 whole-scan UKF/EKF and smoothing calls goes.
 
     python3 scripts/torch_stage_breakdown.py [pf] [bank] [parallel] [scan]
-                                             [smooth]
+                                             [smooth] [track]
 
 Needs one CUDA card.  Runs the named sections (all without arguments),
 in f32:
@@ -26,6 +26,10 @@ in f32:
   (bench.py:695-721) with iters = 1 and 4 (the difference over 3 is one
   refinement iteration), stages of one iteration: the unscented SLR,
   the filtered moments (elements and kernel K), the smoothing scan;
+- ``track``: ``mean_trajectory(pf, u, y, generator=g)`` and
+  ``pf_stats_fused`` at N = 1e5, T = 1000 on the benchmark's 2-state
+  model, stages: the admission (probes and coefficients), the inputs,
+  the seed draw, kernel A's moments mode with its wrapper;
 
 first as whole calls, then stage by stage through the same internal
 functions in the verb's order.  Each time is the median of 7 (host
@@ -358,7 +362,7 @@ def main():
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     sections = set(sys.argv[1:]) or {"pf", "bank", "parallel", "scan",
-                                     "smooth"}
+                                     "smooth", "track"}
     kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2,
                                           dtype=torch.float32, device=dev)
     g = torch.Generator().manual_seed(0)
@@ -404,6 +408,45 @@ def main():
                          ("scan_inputs", inputs), ("seed draw", seed),
                          ("kernel A incl. wrapper", kernel_a)):
             line(f"{tag} {name}", median_ms(fn))
+
+    if "track" in sections:
+        N = 100_000
+        pf = convert.particle_filter_from_numpy(
+            N, *convert.linear_callbacks(A, B, C, device=dev), R1, R2, R1,
+            resample_threshold=0.1, device=dev)
+        tag = f"track N={N} T={T}"
+        for what, call in (
+                ("mean_trajectory", lambda: llpt.mean_trajectory(
+                    pf, u, y, generator=gen)),
+                ("pf_stats_fused", lambda: llpt.pf_stats_fused(
+                    pf, u, y, seed_from_generator(gen)))):
+            line(f"{tag} whole {what}", median_ms(call))
+            busy, n, own = device_profile(call)
+            print(f"{tag} {what} device busy {busy} ms/call, {n} kernel "
+                  f"launches/call; kernel A: {own}", flush=True)
+        st = {}
+
+        def admits():
+            st["coef"] = pf_scan.kernel_admits(pf, u, y)
+
+        def inputs():
+            st["args"] = pf_scan.scan_inputs(pf, u, y, st["coef"])
+
+        def seed():
+            st["seed"] = seed_from_generator(gen)
+
+        def moments(want):
+            return lambda: pf_scan.pf_scan(*st["args"], N=N, thresh=0.1,
+                                           seed=st["seed"], moments=want)
+
+        for name, fn in (("kernel_admits (probes + coefficients)", admits),
+                         ("scan_inputs", inputs), ("seed draw", seed),
+                         ("kernel A means mode incl. wrapper", moments(1)),
+                         ("kernel A stats mode incl. wrapper", moments(2))):
+            line(f"{tag} {name}", median_ms(fn))
+        for want in (1, 2):
+            line(f"{tag} kernel A moments={want} by CUDA events",
+                 events_ms(moments(want), 10))
 
     for Bk in (1024, 8192) if "bank" in sections else ():
         T = 200

@@ -15,7 +15,8 @@ import lowlevelparticlefilters_jl_tpu_torch as llpt
 from lowlevelparticlefilters_jl_tpu_torch import convert
 from lowlevelparticlefilters_jl_tpu_torch.filters import bank as tbank
 from lowlevelparticlefilters_jl_tpu_torch.kernels import (
-    assoc_scan, bank_scan, ffbs, noise, pf_scan, resample_route, ukf_scan)
+    assoc_scan, bank_scan, ffbs, noise, pf_scan, resample_route, resample_v2,
+    ukf_scan)
 from lowlevelparticlefilters_jl_tpu_torch.ops import resample as trs
 
 pytestmark = pytest.mark.cuda
@@ -599,3 +600,159 @@ def test_smooth_routes_on_card(cuda_device):
     assert ukf_scan.UKF_SCAN.launches == g0 + 1
     want = q64.smooth(None, yq)
     torch.testing.assert_close(got.xT.double().cpu(), want.xT, **tol)
+
+
+# ---- PF state tracking: kernel A's moments, segment and scalar-density
+# modes, kernel E -------------------------------------------------------------
+
+
+def _mode_case(cuda_device, kind, N=100_000, T=200, dm=None):
+    """Inputs of kernel A and the keywords of one comparison case:
+    "none" (no noise, threshold 0), "philox" (the same Philox stream,
+    threshold 0: no resampling, so only the sum order differs) or
+    "lattice" (exact resampling, tests/_torch_parity.py)."""
+    if kind == "lattice":
+        pf, u, y, x0 = lattice_case(N, T, device=cuda_device)
+        kw = dict(N=N, thresh=float(pf.resample_threshold), seed=0,
+                  noise="none", x0=x0)
+        return pf_scan.scan_inputs(pf, u, y), kw, pf
+    pf = _model(N, cuda_device, threshold=0.0)
+    if dm is not None:
+        pf = pf.replace(measurement_density=dm)
+    _, u, y = _data(T)
+    x0 = torch.randn(N, 2, generator=torch.Generator().manual_seed(0)
+                     ).to(cuda_device)
+    kw = dict(N=N, thresh=0.0, seed=3, noise=kind, x0=x0)
+    return (pf_scan.scan_inputs(pf, u.float().to(cuda_device),
+                                y.float().to(cuda_device)), kw, pf)
+
+
+@pytest.mark.parametrize("kind", ["none", "philox", "lattice"])
+def test_pf_moments_mode_matches_twin(cuda_device, kind):
+    """Means and central covariances against the twin, rtol 2e-4 and atol
+    1e-5 (the sums run in another order); ll at 1e-5 and the resample
+    count exactly (in the lattice case the means, sums of multiples of 8
+    under 2^24, are exact too)."""
+    args, kw, _ = _mode_case(cuda_device, kind)
+    before = pf_scan.PF_MOMENTS_SCAN.launches
+    got = pf_scan.pf_scan(*args, moments=2, **kw)
+    assert pf_scan.PF_MOMENTS_SCAN.launches == before + 1
+    want = pf_scan.pf_scan_plain(*args, moments=2, **kw)
+    assert float(got["nres"]) == float(want["nres"])
+    np.testing.assert_allclose(float(got["ll"]), float(want["ll"]),
+                               rtol=1e-5)
+    for name in ("means", "covs"):
+        torch.testing.assert_close(got[name], want[name], rtol=2e-4,
+                                   atol=1e-5)
+    if kind == "lattice":
+        assert 1.0 <= float(want["nres"]) < 200.0
+        assert torch.equal(got["means"], want["means"])
+    # the means mode writes the same means and no covariances
+    one = pf_scan.pf_scan(*args, moments=1, **kw)
+    assert "covs" not in one and torch.equal(one["means"], got["means"])
+
+
+@pytest.mark.parametrize("kind", ["none", "philox"])
+def test_pf_segment_mode_matches_twin(cuda_device, kind):
+    args, kw, _ = _mode_case(cuda_device, kind, T=100)
+    w0 = torch.randn(kw["N"], generator=torch.Generator().manual_seed(1)
+                     ).to(cuda_device)
+    before = pf_scan.PF_SEGMENT_SCAN.launches
+    got = pf_scan.pf_scan(*args, w0=w0, segment=True, **kw)
+    assert pf_scan.PF_SEGMENT_SCAN.launches == before + 1
+    want = pf_scan.pf_scan_plain(*args, w0=w0, segment=True, **kw)
+    assert float(got["nres"]) == float(want["nres"]) == 0.0
+    np.testing.assert_allclose(float(got["ll"]), float(want["ll"]),
+                               rtol=1e-5)
+    torch.testing.assert_close(got["x_fin"], want["x_fin"], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(got["w_fin"], want["w_fin"], rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["none", "philox"])
+def test_pf_density_mode_matches_twin(cuda_device, kind):
+    dm = llpt.TupleProduct([llpt.StudentT(4.0, 0.0, 0.35),
+                            llpt.Laplace(0.0, 0.25)])
+    args, kw, pf = _mode_case(cuda_device, kind, dm=dm)
+    dens = pf_scan.scan_density(pf, cuda_device)
+    before = pf_scan.PF_DENSITY_SCAN.launches
+    llk, nk = pf_scan.pf_loglik_scan(*args, dens=dens, **kw)
+    assert pf_scan.PF_DENSITY_SCAN.launches == before + 1
+    llp, npl = pf_scan.pf_loglik_scan_plain(*args, dens=dens, **kw)
+    np.testing.assert_allclose(float(llk), float(llp), rtol=1e-5)
+    assert float(nk) == float(npl) == 0.0
+
+
+def test_pf_density_all_minus_inf_on_card(cuda_device):
+    """A step where no particle meets the uniform support: the kernel's
+    ll is NaN, as the sequential route's is."""
+    dm = llpt.TupleProduct([llpt.Uniform(-50.0, 50.0),
+                            llpt.Uniform(-50.0, 50.0)])
+    pf = _model(20_000, cuda_device).replace(measurement_density=dm)
+    _, u, y = _data(8)
+    y[4, 0] = 1000.0
+    uc, yc = u.float().to(cuda_device), y.float().to(cuda_device)
+    g = torch.Generator(device=cuda_device)
+    ll = pf.loglik(uc, yc, generator=g.manual_seed(0))
+    assert llpt.last_route("loglik") == "cuda_fused_scan"
+    seq = pf.loglik(uc, yc, generator=g.manual_seed(0), method="sequential")
+    assert np.isnan(float(ll)) and np.isnan(float(seq))
+
+
+@pytest.mark.parametrize("nx", [2, 8])
+@pytest.mark.parametrize("profile", ["random", "skewed", "single"])
+def test_index_gather_bitwise(cuda_device, nx, profile):
+    """Kernel E against its twin: j and the rows bitwise, f32 and f64."""
+    g = torch.Generator().manual_seed(nx)
+    N = 100_000
+    we = torch.rand(N, generator=g, dtype=torch.float64)
+    if profile == "skewed":
+        we = we ** 20
+    elif profile == "single":
+        we = torch.zeros(N, dtype=torch.float64)
+        we[12345] = 1.0
+    K = trs._systematic_slots(we / we.sum(),
+                              torch.tensor(0.37, dtype=torch.float64), N)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.randn(N, nx, generator=g, dtype=dtype)
+        out_p, j_p = resample_v2.systematic_index_gather_plain(x, K)
+        before = resample_v2.SYSTEMATIC_INDEX_GATHER.launches
+        out, j = resample_v2.systematic_index_gather(x.to(cuda_device),
+                                                     K.to(cuda_device))
+        assert resample_v2.SYSTEMATIC_INDEX_GATHER.launches == before + 1
+        assert j.dtype == torch.int32
+        assert torch.equal(j.cpu(), j_p) and torch.equal(out.cpu(), out_p)
+    if profile == "single":
+        assert bool((j == 12345).all())
+
+
+def test_pf_tracking_routes_on_card(cuda_device):
+    """``mean_trajectory`` takes kernel A's moments mode; the
+    ``exact_resample`` filter takes kernel E and gives the bits of the
+    default filter; the APF resamples through B (or E)."""
+    pf = _model(20_000, cuda_device)
+    kf, u, y = _data(60, seed=3)
+    uc, yc = u.float().to(cuda_device), y.float().to(cuda_device)
+    g = torch.Generator(device=cuda_device)
+    before = pf_scan.PF_MOMENTS_SCAN.launches
+    m = llpt.mean_trajectory(pf, uc, yc, generator=g.manual_seed(0))
+    assert llpt.last_route("mean_trajectory") == "cuda_fused_scan"
+    assert pf_scan.PF_MOMENTS_SCAN.launches == before + 1
+    assert m.shape == (60, 2) and bool(torch.isfinite(m).all())
+    sols = []
+    e0 = resample_v2.SYSTEMATIC_INDEX_GATHER.launches
+    for exact in (True, False):
+        sols.append(pf.replace(exact_resample=exact).forward_trajectory(
+            uc, yc, generator=g.manual_seed(1)))
+    resamples = int((1.0 / (sols[0].we ** 2).sum(-1) < 0.1 * pf.N).sum())
+    assert resamples >= 1
+    assert resample_v2.SYSTEMATIC_INDEX_GATHER.launches == e0 + resamples
+    for f in ("x", "w", "we", "ll"):
+        assert torch.equal(getattr(sols[0], f), getattr(sols[1], f)), f
+    b0 = resample_route.SYSTEMATIC_GATHER.launches
+    apf = llpt.AuxiliaryParticleFilter(pf=pf)
+    ll = apf.loglik(uc, yc, generator=g.manual_seed(2))
+    assert resample_route.SYSTEMATIC_GATHER.launches == b0 + 59
+    ll_kf = float(llpt.loglik(kf, u, y))
+    assert abs(float(ll) - ll_kf) < 0.05 * abs(ll_kf)
