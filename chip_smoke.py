@@ -75,11 +75,31 @@ exits non-zero without its result lines):
    T = 1000 (the APF never scores y[0], about 1 % of |ll| at T = 100) and
    ``AdvancedParticleFilter.loglik`` at T = 100, each with kernel B and
    with E (``exact_resample``), bitwise equal, ll within 1 % of the KF.
+16. kernel K's whole-element mode (``filter_scan_full``) against its
+   twin on generic filtering elements at T = 1e5, nx = 2 and 8, and at
+   the time-sharded path's shape, T = 1e6, nx = 2 (all five stacks); its
+   time at T = 1e6, nx = 2.
+17. the time-sharded KF and RTS smoother (parallel/sharded.py) on a world
+   of size 1 on NCCL at T = 1e6: one K-full launch a call, ll within 1e-4
+   of phase 7's float64 CPU reference; at T = 2000 the filtered and
+   smoothed moments against the float64 CPU sequential KF and RTS.
+18. ``sharded_pf_loglik_fused`` at N = 1e5, T = 1000, threshold 0.1: one
+   launch of kernel A's segment mode a segment; 8-step segments within 1 %
+   of the KF, 32-step ones within 4 % (see ``SEGMENTS``); the host time
+   of the routing checks (``_under_batch_trace``, ``_needs_grad``) on
+   that filter.
+19. ``sharded_forward_trajectory``, the sharded APF and the sharded FFBS
+   at N = M = 1000, T = 100 against the KF (1 %, 3 %, FFBS_RMS_Z); then
+   the process group is destroyed.
+   Phases 17-18 print medians of 5 calls and the card's busy share of a
+   call (``torch.profiler``).
 
 Launch counts are reset just before each path's run (phases 4-5, 6, 7,
-8, 9, 10, 11, 12, 13, 14 and 15) and read just after it; every kernel of
-the path must have launched there.  The kernels line (with each kernel's bound: the larger of its
-bytes over 3.35 TB/s and its operations over 67 T/s) and the card's
+8, 9, 10, 11, 12, 13, 14, 15, 17 and 18) and read just after it; every
+kernel of the path must have launched there.  The kernels line (with
+each kernel's bound: the larger of its bytes over 3.35 TB/s and its
+operations over 67 T/s; kernel A's segment mode, which two paths run,
+also gives each path's count under ``launches_by_path``) and the card's
 ``nvidia-smi`` line come before the last line,
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -1037,6 +1057,257 @@ def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
         f"bitwise equal to B runs; launches {path15}")
 
 
+#: phases 16-19 (see the module doc): K-full's twin check length, the
+#: time-sharded length, the depth of the smaller sharded runs
+T_FULL, T_SHARD, N_SMALL, T_SMALL = 100_000, 1_000_000, 1000, 100
+#: the fused sharded PF's segments and the bound on each one's ll, relative
+#: to the KF's.  32 steps is the default of sharded_pf_loglik_fused (as in
+#: the JAX package); its resampling-free span degenerates on this model,
+#: so the estimate reads low: the JAX package's own function read 1-3 %
+#: below the KF at this size on the CPU, and 4 % sits above every reading
+#: (``python tests/test_torch_sharded.py``; PERF.md, Open questions).
+#: 8-step segments are held to the 1 % of the main path.
+SEGMENTS = {8: 0.01, 32: 0.04}
+
+
+def busy_share(fn):
+    """Share of one call's wall time (host clock, synchronized) that the
+    card spends in kernels, from ``torch.profiler``'s device events; None
+    where the profiler records no device time.  The profiler's own
+    overhead lengthens the call, so this reads low."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    return dev_us * 1e-6 / wall if dev_us > 0 else None
+
+
+def close_stacks(got, want):
+    """K-full against its twin, stack by stack: within rtol 2e-4 and an
+    absolute 2e-5 of the stack's scale (f32 combines in another
+    association order; J and eta grow with the information summed)."""
+    err = 0.0
+    for name, g, w in zip(("A", "b", "C", "eta", "J"), got, want):
+        scale = 1.0 + float(w.abs().max())
+        require(torch.allclose(g, w, rtol=2e-4, atol=2e-5 * scale),
+                f"K-full {name} within rtol 2e-4, atol 2e-5 x {scale:.3g} of "
+                f"its twin")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def sharded_phases(dev, kernels, stats, launches, smi, kf, kf32, data, model,
+                   big):
+    """Phases 16-19: kernel K's whole-element mode against its twin, the
+    time-sharded KF and RTS smoother on a world of size 1 on NCCL, the
+    particle-sharded PF with kernel A's segment mode, and the smaller
+    sharded runs (see the module doc)."""
+    import torch.distributed as dist
+
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch import routing
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import (assoc_scan,
+                                                              pf_scan)
+    from lowlevelparticlefilters_jl_tpu_torch.parallel import sharded as sh
+    from lowlevelparticlefilters_jl_tpu_torch.parallel import temporal
+
+    FULL, SEG = assoc_scan.ASSOC_SCAN_FULL, pf_scan.PF_SEGMENT_SCAN
+
+    def counts():
+        return {k.name: k.launches for k in kernels if k.launches}
+
+    # ---- 16. K-full against its twin ----------------------------------------
+    def elements(nx, T, seed):
+        """Generic filtering elements (without the prior's element 0,
+        whose A = 0 makes every prefix's A, eta and J vanish) of a
+        stable nx-state model on y ~ N(0, 0.3^2), f32 on the card."""
+        g = torch.Generator().manual_seed(seed)
+        if nx == 2:
+            F = kf32.A
+        else:
+            Qm, _ = torch.linalg.qr(torch.randn(nx, nx, generator=g))
+            F = (0.9 * Qm).float().to(dev)
+        eye = torch.eye(nx, device=dev)
+        y = (0.3 * torch.randn(T + 1, nx, generator=g)).to(dev)
+        rep = lambda M: M.expand(T + 1, nx, nx)  # noqa: E731
+        el = temporal._filter_elements(
+            rep(F), torch.zeros(T + 1, nx, device=dev), rep(eye),
+            rep(0.01 * eye), rep(0.1 * eye), y, torch.zeros(nx, device=dev),
+            eye)
+        return tuple(e[1:].contiguous() for e in el)
+
+    worst = 0.0
+    # the last case is the time-sharded path's shape, nx = 2, T = 1e6,
+    # whose inputs the times below reuse
+    for nx, T in ((2, T_FULL), (8, T_FULL), (2, T_SHARD)):
+        el = elements(nx, T, 160 + nx + (T == T_SHARD))
+        got = assoc_scan.filter_scan_full(*el)
+        want = assoc_scan.filter_scan_full_plain(*el)
+        err = close_stacks(got, want)
+        worst = max(worst, err)
+        log("K-full", f"nx={nx} T={T}: all five stacks within the bound "
+            f"of the twin, max abs err {err:.3g}")
+        del got, want
+    x_full = torch.cat([e.reshape(T_SHARD, -1) for e in el], -1).contiguous()
+    E = x_full.shape[1]
+    ops_full = scan_combines(T_SHARD) * combine_ops(
+        temporal._filter_combine_soa,
+        (("m", 2), ("v", 2), ("m", 2), ("v", 2), ("m", 2)))
+    stats["assoc_scan_full"] = dict(
+        max_abs_err=worst,
+        ms=cuda_ms(lambda: assoc_scan.full_scan(x_full, 2), 20),
+        plain_ms=cuda_ms(lambda: assoc_scan.filter_scan_full_plain(*el), 1),
+        library_ms=None,  # PyTorch has no scan of a custom combine
+        **bound(2 * 4 * E * T_SHARD, ops_full))
+    log("K-full assoc_scan_full", f"T={T_SHARD} nx=2: "
+        f"{stats['assoc_scan_full']} ({smi})")
+
+    # ---- 17. time-sharded KF and RTS on a world of size 1 on NCCL ----------
+    mesh = sh.particle_mesh(device=dev)
+    require(mesh.size == 1 and dist.get_backend(mesh.group) == "nccl",
+            f"a world of size 1 on NCCL, got {mesh.size} on "
+            f"{dist.get_backend(mesh.group)}")
+    u6, y6, ll6_ref = big
+    u6c, y6c = u6.float().to(dev), y6.float().to(dev)
+    for k in kernels:
+        k.launches = 0
+    xt, Rt, ll = sh.time_sharded_parallel_kf(kf32, u6c, y6c, mesh)
+    xT, RT, xt2, Rt2, ll2 = sh.time_sharded_parallel_smooth(kf32, u6c, y6c,
+                                                            mesh)
+    torch.cuda.synchronize()
+    path = counts()
+    require(path == {"assoc_scan_full": 2},
+            f"time-sharded path launches {path}: one K-full a call")
+    launches["assoc_scan_full"] = path["assoc_scan_full"]
+    rel = check_ref("time-sharded KF T=1e6", ll, ll6_ref)
+    rel2 = check_ref("time-sharded RTS T=1e6", ll2, ll6_ref)
+    require(all(bool(torch.isfinite(v).all()) and v.shape[0] == T_SHARD
+                for v in (xt, Rt, xT, RT)) and torch.equal(xt, xt2),
+            "time-sharded moments finite, [T, ...], the smoother's filter "
+            "equal to the filter's")
+    # T = 2000 against the f64 CPU sequential KF and RTS smoother
+    u2, y2, _ = data(2000, seed=171)
+    seq = llpt.forward_trajectory(kf, u2, y2, method="sequential")
+    ssq = llpt.rts_smooth(seq, kf)
+    got = sh.time_sharded_parallel_smooth(kf32, u2.float().to(dev),
+                                          y2.float().to(dev), mesh)
+    tol = dict(rtol=1e-3, atol=1e-4)
+    require(all(torch.allclose(g.double().cpu(), w, **tol) for g, w in zip(
+        got[:4], (ssq.xT, ssq.RT, seq.xt, seq.Rt))),
+            "T=2000: xT, RT, xt, Rt within rtol 1e-3, atol 1e-4 of the f64 "
+            "CPU sequential filter and smoother")
+    rel3 = check_ref("time-sharded T=2000", got[4], float(seq.ll))
+    med_kf = host_median_ms(lambda: sh.time_sharded_parallel_kf(
+        kf32, u6c, y6c, mesh))
+    med_sm = host_median_ms(lambda: sh.time_sharded_parallel_smooth(
+        kf32, u6c, y6c, mesh))
+    busy_kf = busy_share(lambda: sh.time_sharded_parallel_kf(
+        kf32, u6c, y6c, mesh))
+    busy_sm = busy_share(lambda: sh.time_sharded_parallel_smooth(
+        kf32, u6c, y6c, mesh))
+    log("time-sharded", f"T={T_SHARD} on {mesh.size} NCCL rank: KF ll "
+        f"{float(ll)} RTS ll {float(ll2)} vs f64 CPU {ll6_ref} (rel "
+        f"{rel:.3g}, {rel2:.3g}); T=2000 vs f64 sequential rel {rel3:.3g}; "
+        f"median of 5: KF {med_kf:.3f} ms, RTS {med_sm:.3f} ms; card busy "
+        f"{busy_kf} / {busy_sm} of a call; launches {path} ({smi})")
+
+    # ---- 18. particle-sharded PF, kernel A's segment mode a segment --------
+    u, y, ll_kf = data(T_MAIN)
+    uc, yc = u.float().to(dev), y.float().to(dev)
+    pf = model(N_MAIN)
+    nseg = {s: -(-T_MAIN // s) for s in SEGMENTS}
+    g = torch.Generator(device=dev)
+    for k in kernels:
+        k.launches = 0
+    llf, t_first = {}, {}
+    for s in SEGMENTS:
+        t0 = time.perf_counter()
+        llf[s] = float(sh.sharded_pf_loglik_fused(
+            pf, uc, yc, g.manual_seed(SEED), mesh, segment=s))
+        t_first[s] = time.perf_counter() - t0
+    path = counts()
+    require(path == {"pf_segment_scan": sum(nseg.values())},
+            f"sharded fused PF launches {path}: A's segment mode once a "
+            f"segment, {nseg}")
+    # each path's own count: ``launches`` stays phase 13's
+    stats["pf_segment_scan"]["launches_by_path"] = {
+        "pf_segment_fused": launches["pf_segment_scan"],
+        "sharded_pf_loglik_fused": path["pf_segment_scan"]}
+    relf = {s: abs(v - ll_kf) / abs(ll_kf) for s, v in llf.items()}
+    require(all(relf[s] < b for s, b in SEGMENTS.items()),
+            f"sharded fused PF ll {llf}: within {SEGMENTS} (segment: bound "
+            f"relative to the KF's {ll_kf})")
+    for s in SEGMENTS:
+        med = host_median_ms(lambda: sh.sharded_pf_loglik_fused(
+            pf, uc, yc, g, mesh, segment=s))
+        busy = busy_share(lambda: sh.sharded_pf_loglik_fused(
+            pf, uc, yc, g, mesh, segment=s))
+        log("sharded PF", f"sharded_pf_loglik_fused N={N_MAIN} T={T_MAIN} "
+            f"segment {s}: ll {llf[s]} KF {ll_kf} rel {relf[s]:.3g}; first "
+            f"call {t_first[s] * 1e3:.1f} ms (one admission), median of 5 "
+            f"{med:.3f} ms, {N_MAIN * T_MAIN / med * 1e3:.4g} "
+            f"particle-steps/s; card busy {busy} of a call; {nseg[s]} "
+            f"launches of A's segment mode ({smi})")
+
+    # the host cost of the routing checks every verb makes on this filter
+    walk_us = {}
+    for fn in (routing._under_batch_trace, routing._needs_grad):
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn(pf, uc, yc)
+        walk_us[fn.__name__] = (time.perf_counter() - t0) / 2000 * 1e6
+    log("routing", f"host microseconds a call on the main path's PF: "
+        f"{walk_us}")
+
+    # ---- 19. the smaller sharded runs --------------------------------------
+    us, ys, ll_s = data(T_SMALL, seed=190)
+    usc, ysc = us.float().to(dev), ys.float().to(dev)
+    pfs = model(N_SMALL, threshold=0.5)
+    t0 = time.perf_counter()
+    *_, ll_ft = sh.sharded_forward_trajectory(pfs, usc, ysc,
+                                              g.manual_seed(SEED), mesh)
+    t_ft = time.perf_counter() - t0
+    apf = llpt.AuxiliaryParticleFilter(pf=pfs)
+    st = sh.shard_pf_state(pfs.init(g.manual_seed(SEED)), mesh)
+    ll_apf = 0.0
+    t0 = time.perf_counter()
+    for k in range(T_SMALL):
+        st, info = sh.sharded_apf_update(
+            apf, st, usc[k], ysc[k], y1=ysc[k + 1] if k + 1 < T_SMALL
+            else None, mesh=mesh)
+        ll_apf += float(info.ll)
+    t_apf = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xb, ll_fb = sh.sharded_ffbs_smooth(pfs, usc, ysc, N_SMALL,
+                                       g.manual_seed(SEED), mesh)
+    torch.cuda.synchronize()
+    t_fb = time.perf_counter() - t0
+    ssol = llpt.rts_smooth(llpt.forward_trajectory(kf, us, ys), kf)
+    z = (xb.mean(1).double().cpu() - ssol.xT) / torch.diagonal(
+        ssol.RT, dim1=-2, dim2=-1).sqrt()
+    rms = float(z.square().mean().sqrt())
+    rels = [abs(float(v) - ll_s) / abs(ll_s) for v in (ll_ft, ll_apf, ll_fb)]
+    require(rels[0] < 0.01 and rels[1] < 0.03 and rels[2] < 0.01
+            and rms < FFBS_RMS_Z and xb.shape == (T_SMALL, N_SMALL, 2),
+            f"sharded forward / APF / FFBS ll rel {rels} (bounds 1 %, 3 %, "
+            f"1 %), FFBS mean RMS {rms:.3g} RTS deviations (bound "
+            f"{FFBS_RMS_Z})")
+    log("sharded small", f"N={N_SMALL} T={T_SMALL}: forward_trajectory ll "
+        f"{float(ll_ft)} ({t_ft * 1e3:.1f} ms), APF ll {ll_apf} "
+        f"({t_apf * 1e3:.1f} ms), FFBS M={N_SMALL} mean RMS {rms:.4f} RTS "
+        f"deviations ({t_fb * 1e3:.1f} ms); KF {ll_s}; rel {rels} ({smi})")
+    dist.destroy_process_group()
+
+
 def smoother_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2):
     """Phase 12: the RTS family on CUDA tensors (see the module doc)."""
     import lowlevelparticlefilters_jl_tpu_torch as llpt
@@ -1160,7 +1431,8 @@ def main():
                ukf_scan.UKF_SCAN, ukf_scan.AKF_SCAN, ukf_scan.EKF_SCAN,
                ffbs.FFBS_BACKWARD, assoc_scan.ASSOC_SCAN,
                pf_scan.PF_MOMENTS_SCAN, pf_scan.PF_SEGMENT_SCAN,
-               pf_scan.PF_DENSITY_SCAN, resample_v2.SYSTEMATIC_INDEX_GATHER]
+               pf_scan.PF_DENSITY_SCAN, resample_v2.SYSTEMATIC_INDEX_GATHER,
+               assoc_scan.ASSOC_SCAN_FULL]
     stats = {k.name: {} for k in kernels}
     launches = {}
 
@@ -1655,6 +1927,8 @@ def main():
     smoother_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2)
     tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
                     lattice_case)
+    sharded_phases(dev, kernels, stats, launches, smi, kf, kf32, data, model,
+                   (u6m, y6m, ll6m_ref))
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"build included")
 

@@ -16,6 +16,15 @@
 // The formulas are parallel/temporal.py's _filter_combine_soa and
 // _smooth_combine_soa.
 //
+// The second entry, llpf_assoc_scan_full, replaces filter_scan_full
+// (assoc_scan.py:314, the same _plane_scan): the filter scan with the top
+// level writing whole prefixes (A, b, C, eta, J), [T, E], which the
+// time-sharded scan (parallel/sharded.py) folds a cross-device carry
+// into.  It is the same chunk scheme; only the top level's writes are
+// whole elements, as the aggregate levels' already are.  Its bound is
+// memory: 4 E T bytes read and 4 E T written, 128 MB at nx = 2 and
+// T = 1e6 (0.038 ms at 3.35 TB/s).
+//
 // Design.  Elements are element-major [T, E] f32, one contiguous record
 // per step.  A thread owns a chunk of kChunk = 16 consecutive steps and
 // combines them in sequence in registers, always with the prefix on the
@@ -306,8 +315,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // phase 3: the inclusive scan of chunk c, started from prefix[c - 1] (the
 // inclusive scan of the aggregates; none for chunk 0 or a single chunk).
-// kFull writes whole elements (the aggregate levels, in place); otherwise
-// only the mean and covariance parts, at row width N + N^2.
+// kFull writes whole elements (the aggregate levels, in place, and the
+// top level of the full mode); otherwise only the mean and covariance
+// parts, at row width N + N^2.
 template <class Op, bool kFull>
 __global__ void __launch_bounds__(kThreads)
     apply_kernel(const float* x, const float* prefix, float* out, int64_t n,
@@ -342,19 +352,21 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Inclusive scan of n elements at x.  The top level (top) reads in scan
-// order pos(k) and writes the mean/covariance parts to out; lower levels
-// scan aggregate buffers in place.  scratch holds cap floats for the
-// aggregates of this level and the ones above it.
+// order pos(k) and writes to out the mean/covariance parts, or with full
+// whole elements; lower levels scan aggregate buffers in place (reverse 0,
+// whole elements).  scratch holds cap floats for the aggregates of this
+// level and the ones above it.
 template <class Op>
 cudaError_t scan_level(const float* x, float* out, float* scratch,
                        int64_t cap, int64_t n, int reverse, bool top,
-                       cudaStream_t s) {
+                       bool full, cudaStream_t s) {
   constexpr int E = Op::E;
+  const bool whole = full || !top;
   if (n <= kChunk) {
-    if (top)
-      apply_kernel<Op, false><<<1, 1, 0, s>>>(x, nullptr, out, n, reverse);
+    if (whole)
+      apply_kernel<Op, true><<<1, 1, 0, s>>>(x, nullptr, out, n, reverse);
     else
-      apply_kernel<Op, true><<<1, 1, 0, s>>>(x, nullptr, out, n, 0);
+      apply_kernel<Op, false><<<1, 1, 0, s>>>(x, nullptr, out, n, reverse);
     return cudaGetLastError();
   }
   const int64_t nch = (n + kChunk - 1) / kChunk;
@@ -365,33 +377,31 @@ cudaError_t scan_level(const float* x, float* out, float* scratch,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = scan_level<Op>(agg, agg, scratch + nch * E, cap - nch * E, nch, 0,
-                       false, s);
+                       false, false, s);
   if (err != cudaSuccess) return err;
-  if (top)
+  if (whole)
+    apply_kernel<Op, true><<<blocks, kThreads, 0, s>>>(x, agg, out, n,
+                                                      reverse);
+  else
     apply_kernel<Op, false><<<blocks, kThreads, 0, s>>>(x, agg, out, n,
                                                        reverse);
-  else
-    apply_kernel<Op, true><<<blocks, kThreads, 0, s>>>(x, agg, out, n, 0);
   return cudaGetLastError();
 }
 
+// kind 0 = filter, 1 = smooth (reversed), 2 = filter writing whole elements
 template <int N>
 cudaError_t run(const float* x, float* out, float* scratch, int64_t cap,
                 int64_t T, int kind, cudaStream_t s) {
-  if (kind == 0)
-    return scan_level<FilterOp<N>>(x, out, scratch, cap, T, 0, true, s);
-  return scan_level<SmoothOp<N>>(x, out, scratch, cap, T, 1, true, s);
+  if (kind == 1)
+    return scan_level<SmoothOp<N>>(x, out, scratch, cap, T, 1, true, false,
+                                   s);
+  return scan_level<FilterOp<N>>(x, out, scratch, cap, T, 0, true,
+                                 kind == 2, s);
 }
 
-}  // namespace
-
-extern "C" {
-
-// x [T, E] elements, out [T, nx + nx^2]; kind 0 = filter, 1 = smooth.
-int llpf_assoc_scan(const float* x, float* out, float* scratch, int64_t cap,
-                    int64_t T, int nx, int kind, void* stream) {
+int dispatch(const float* x, float* out, float* scratch, int64_t cap,
+             int64_t T, int nx, int kind, void* stream) {
   if (T <= 0) return (int)cudaGetLastError();
-  if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (nx) {
     case 1: return (int)run<1>(x, out, scratch, cap, T, kind, s);
@@ -404,6 +414,25 @@ int llpf_assoc_scan(const float* x, float* out, float* scratch, int64_t cap,
     case 8: return (int)run<8>(x, out, scratch, cap, T, kind, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// x [T, E] elements, out [T, nx + nx^2]; kind 0 = filter, 1 = smooth.
+int llpf_assoc_scan(const float* x, float* out, float* scratch, int64_t cap,
+                    int64_t T, int nx, int kind, void* stream) {
+  if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
+  return dispatch(x, out, scratch, cap, T, nx, kind, stream);
+}
+
+// x [T, E] filter elements, out [T, E] (not x: x is only read) their
+// inclusive prefixes, whole.
+int llpf_assoc_scan_full(const float* x, float* out, float* scratch,
+                         int64_t cap, int64_t T, int nx, void* stream) {
+  if (out == x) return (int)cudaErrorInvalidValue;
+  return dispatch(x, out, scratch, cap, T, nx, 2, stream);
 }
 
 }  // extern "C"

@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.matrices import resolve_mat
-from ..routing import _record, _under_batch_trace
+from ..routing import (_needs_grad, _record, _under_batch_trace,
+                       _want_fused)
 from ..utils.struct import struct
 from .kalman import kf_correct, kf_predict
 
@@ -214,7 +215,10 @@ def _bank_scan(kf, us, ys, want_states: bool, method: str = "auto"):
                     "kernels/bank_scan.py::bank_kernel_supported)")
             use_kernel = True
         else:
-            use_kernel = (method == "auto" and ys.is_cuda
+            # "auto" on CUDA tensors, unless autograd records (kernel F
+            # is forward-only; the plane path is differentiable)
+            use_kernel = (_want_fused(method, ys)
+                          and not _needs_grad(kf, us, ys, Schol, K)
                           and bs.bank_kernel_profitable(T, Bk, nx, ny, nu,
                                                         dtype))
         if use_kernel and not _under_batch_trace(kf, us, ys):

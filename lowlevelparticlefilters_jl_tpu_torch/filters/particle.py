@@ -156,6 +156,18 @@ class _ParticleCommon(AbstractParticleFilter):
     def _advance(self, state, u_seq, y, k, p, tk):
         return self.predict(state, u_seq[k], p, tk)
 
+    def smooth(self, u, y, p=None, *, M: int,
+               generator: Optional[torch.Generator] = None,
+               backend: str = "auto"):
+        """FFBS particle smoother: :meth:`forward_trajectory`, then
+        ``smoothing.ffbs_smooth`` (kernel J on CUDA float32 data), both
+        drawing from ``generator``.  Returns ``(xb [T, M, nx], ll)``."""
+        from ..smoothing import ffbs_smooth
+
+        sol = self.forward_trajectory(u, y, p, generator=generator)
+        return ffbs_smooth(self, sol, M, generator, u=u, y=y, p=p,
+                           backend=backend)
+
     def weighted_mean(self, state: PFState) -> torch.Tensor:
         return torch.einsum("n,nd->d", state.we, state.x)
 
@@ -252,29 +264,19 @@ class ParticleFilter(_ParticleCommon):
         xn = torch.func.vmap(lambda xi: f(xi, u, p, t))(x)
         d1 = self.dynamics_density
         if d1 is not None and self.noise_backend == "kernel":
-            from ..kernels.noise import add_gaussian_noise
-            from ..routing import seed_from_generator
+            from ..kernels import noise
+            from ..routing import _needs_grad, seed_from_generator
 
-            xn = add_gaussian_noise(xn, d1.chol(),
-                                    seed_from_generator(state.generator),
-                                    state.t) + d1.mean
+            # kernel D is forward-only: its twin draws the same normals
+            add = (noise.add_gaussian_noise_plain if _needs_grad(xn, d1)
+                   else noise.add_gaussian_noise)
+            xn = add(xn, d1.chol(), seed_from_generator(state.generator),
+                     state.t) + d1.mean
         elif d1 is not None:
             xn = xn + d1.sample(state.generator, (self.N,))
         w, we = self._weights_after(state, did_resample)
         return PFState(x=xn, w=w, we=we, t=state.t + 1,
                        generator=state.generator)
-
-    def smooth(self, u, y, p=None, *, M: int,
-               generator: Optional[torch.Generator] = None,
-               backend: str = "auto"):
-        """FFBS particle smoother: :meth:`forward_trajectory`, then
-        ``smoothing.ffbs_smooth`` (kernel J on CUDA float32 data), both
-        drawing from ``generator``.  Returns ``(xb [T, M, nx], ll)``."""
-        from ..smoothing import ffbs_smooth
-
-        sol = self.forward_trajectory(u, y, p, generator=generator)
-        return ffbs_smooth(self, sol, M, generator, u=u, y=y, p=p,
-                           backend=backend)
 
     def sample_initial(self, generator, p=None, noise=True):
         d0 = self.initial_density

@@ -7,7 +7,10 @@
 - :func:`smooth_scan_p` — the reverse scan of the smoothing elements
   (E, g, L) under ``g(a, b) = _smooth_combine_soa(b, a)``, done forward
   over time flipped (the scan runs from the end with the prefix so far
-  as the combine's first argument); returns the ``g`` and ``L`` planes.
+  as the combine's first argument); returns the ``g`` and ``L`` planes,
+- :func:`filter_scan_full` — the filter scan returning all five
+  combined element stacks ``(A, b, C, η, J)``, the local level of the
+  time-sharded scan (parallel/sharded.py).
 
 Elements come in as the plane structures of ``parallel/temporal.py``.  On
 CUDA the planes are stacked once into an element-major [T, E] f32
@@ -19,14 +22,16 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.temporal import (_filter_combine_soa, _leaves, _m_join,
-                                 _m_split, _smooth_combine_soa, _v_join,
-                                 _v_split, associative_scan)
+from ..parallel.temporal import (_filter_combine, _filter_combine_soa,
+                                 _kernel_takes, _leaves, _m_join, _m_split,
+                                 _smooth_combine_soa, _v_join, _v_split,
+                                 associative_scan)
 from ._lib import KernelInfo, check, library, require_cuda_f32, stream_ptr
 
-ASSOC_SCAN = KernelInfo(
-    "assoc_scan", "lowlevelparticlefilters_jl_tpu_torch/csrc/assoc_scan.cu",
-    "lowlevelparticlefilters_jl_tpu/ops/pallas/assoc_scan.py:167")
+_SRC = "lowlevelparticlefilters_jl_tpu_torch/csrc/assoc_scan.cu"
+_JAX = "lowlevelparticlefilters_jl_tpu/ops/pallas/assoc_scan.py"
+ASSOC_SCAN = KernelInfo("assoc_scan", _SRC, f"{_JAX}:167")
+ASSOC_SCAN_FULL = KernelInfo("assoc_scan_full", _SRC, f"{_JAX}:314")
 
 FILTER, SMOOTH = 0, 1
 MAX_NX = 8
@@ -53,13 +58,35 @@ def plane_scan(x: torch.Tensor, nx: int, kind: int) -> torch.Tensor:
     require_cuda_f32("elements", x)
     out = torch.empty((T, nx + nx * nx), dtype=torch.float32,
                       device=x.device)
-    # each level of the chunk recursion keeps ceil(n / 16) aggregates
-    scratch = torch.empty(E * (T // 8 + 64), dtype=torch.float32,
-                          device=x.device)
+    scratch = _scratch(T, E, x)
     check(library().lib.llpf_assoc_scan(
         x.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(),
         T, nx, kind, stream_ptr(x)), "assoc_scan")
     ASSOC_SCAN.launches += 1
+    return out
+
+
+def _scratch(T: int, E: int, like: torch.Tensor) -> torch.Tensor:
+    # each level of the chunk recursion keeps ceil(n / 16) aggregates
+    return torch.empty(E * (T // 8 + 64), dtype=torch.float32,
+                       device=like.device)
+
+
+def full_scan(x: torch.Tensor, nx: int) -> torch.Tensor:
+    """Kernel K's whole-element mode on element-major filter elements
+    ``x`` [T, E] (CUDA f32, E = 3nx² + 2nx): the inclusive prefixes,
+    whole, [T, E] in a new tensor (``x`` is only read)."""
+    T, E = x.shape
+    if not 1 <= nx <= MAX_NX or E != n_elements(nx, FILTER):
+        raise ValueError(f"assoc_scan_full: nx must be 1..{MAX_NX} and E "
+                         f"{n_elements(nx, FILTER)}, got nx={nx}, E={E}")
+    require_cuda_f32("elements", x)
+    out = torch.empty_like(x)
+    scratch = _scratch(T, E, x)
+    check(library().lib.llpf_assoc_scan_full(
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        T, nx, stream_ptr(x)), "assoc_scan_full")
+    ASSOC_SCAN_FULL.launches += 1
     return out
 
 
@@ -122,3 +149,28 @@ def smooth_scan(E, g, L):
     """[T, ...] element stacks in, ``(xT [T, nx], RT [T, nx, nx])`` out."""
     m, M = smooth_scan_p(_split((E, g, L)))
     return _v_join(m), _m_join(M)
+
+
+def filter_scan_full_plain(A, b, C, eta, J):
+    """The twin of :func:`filter_scan_full`: the Hillis–Steele scan under
+    ``_filter_combine``, any dtype and device, differentiable."""
+    return associative_scan(_filter_combine, (A, b, C, eta, J))
+
+
+def filter_scan_full(A, b, C, eta, J):
+    """Inclusive filter prefix scan of the [T, ...] element stacks,
+    returning all five combined stacks ``(A, b, C, eta, J)`` (``b`` and
+    ``C`` are the filtered moments).  Kernel K's whole-element mode
+    (:func:`full_scan`) on CUDA f32 with nx <= 8 and no tensor that
+    autograd records; the twin otherwise, as the JAX package's
+    ``scan_supported`` and ``route_ad`` route it."""
+    T, nx = b.shape
+    elems = (A, b, C, eta, J)
+    if not _kernel_takes(nx, elems):
+        return filter_scan_full_plain(*elems)
+    # one record per step, in the order of the plane elements
+    x = torch.cat([e.reshape(T, -1) for e in elems], -1).contiguous()
+    out = full_scan(x, nx)
+    sizes = [nx * nx, nx, nx * nx, nx, nx * nx]
+    return tuple(o.reshape(e.shape)
+                 for o, e in zip(out.split(sizes, -1), elems))

@@ -525,10 +525,22 @@ def pf_segment_fused(pf, u, y, seed: int, x0, w0, *, noise: str = "philox",
 
 def kernel_admits(pf, u, y) -> Optional[torch.Tensor]:
     """The coefficients when kernel A admits this call, else None:
-    :func:`pf_scan_supported`, f32 data and Gaussian densities, a scalar
-    density's dimension equal to ny, callbacks that the static walk finds
-    affine in x (``ukf_scan.callbacks_affine``) and the probes of
-    :func:`affine_coefficients` confirm."""
+    :func:`affine_admission`, and no tensor of the filter, the data or
+    the coefficients requires grad while autograd records (the kernel is
+    forward-only; ``routing._needs_grad``)."""
+    from ..routing import _needs_grad
+
+    coef = affine_admission(pf, u, y)
+    return None if coef is None or _needs_grad(pf, u, y, coef) else coef
+
+
+def affine_admission(pf, u, y) -> Optional[torch.Tensor]:
+    """The coefficients when the filter and data fit kernel A's model,
+    else None: :func:`pf_scan_supported`, f32 data and Gaussian
+    densities, a scalar density's dimension equal to ny, callbacks that
+    the static walk finds affine in x (``ukf_scan.callbacks_affine``) and
+    the probes of :func:`affine_coefficients` confirm.  The plain twin
+    takes what this admits whether or not autograd records."""
     if not pf_scan_supported(pf):
         return None
     dens = [d for d in (pf.dynamics_density, pf.measurement_density,

@@ -774,10 +774,11 @@ def _sequential(f, us, ys, want_traj):
 
 
 def _data_ok(f, ys, us) -> bool:
-    from ..routing import _under_batch_trace
+    from ..routing import _needs_grad, _under_batch_trace
 
     return (_f32(ys, us) and (us is None or us.ndim == 2)
-            and not _under_batch_trace(f, ys, us))
+            and not _under_batch_trace(f, ys, us)
+            and not _needs_grad(f, ys, us))
 
 
 def _finish(f, us, ys, ll, outs, want_traj):

@@ -143,8 +143,12 @@ def resample_gather(x: torch.Tensor, we: torch.Tensor, generator=None,
     through kernel B's gather, or with ``exact`` through kernel E, which
     forms the index vector ``j`` and gathers ``x[j]`` in one launch (the
     JAX package's ``exact_resample`` branch); the two draw the same r and
-    K, so their results are bitwise equal.  Other strategies index."""
-    if strategy != "systematic":
+    K, so their results are bitwise equal.  Other strategies index, and so
+    does systematic resampling of particles that autograd records
+    (``routing._needs_grad``): the kernels are forward-only."""
+    from ..routing import _needs_grad
+
+    if strategy != "systematic" or _needs_grad(x):
         return x[resample(we, generator, x.shape[0], strategy=strategy)]
     if exact:
         from ..kernels.resample_v2 import fused_systematic_gather

@@ -409,13 +409,25 @@ def _smooth_elements_p(Fp, cp, Qp, xtp, Ctp, T):
     return E, g, L
 
 
+def _kernel_takes(nx: int, elems) -> bool:
+    """Kernel K takes a scan of ``elems`` (any nesting of tensors): CUDA
+    f32 with nx <= 8 (``assoc_scan.scan_supported``) and no tensor that
+    autograd records (``routing._needs_grad``): the kernel is
+    forward-only, the twin differentiable."""
+    from ..kernels.assoc_scan import scan_supported
+    from ..routing import _needs_grad
+
+    return (scan_supported(nx, _leaves(elems)[0])
+            and not _needs_grad(elems))
+
+
 def _scan_filter_p(elems_p):
-    """Inclusive filter-combine scan of plane elements: kernel K on CUDA
-    f32 with nx <= 8 (kernels/assoc_scan.py), its Hillis–Steele twin
-    elsewhere.  Returns (xt planes, Rt planes)."""
+    """Inclusive filter-combine scan of plane elements: kernel K where
+    :func:`_kernel_takes`, its Hillis–Steele twin elsewhere.  Returns
+    (xt planes, Rt planes)."""
     from ..kernels import assoc_scan as k
 
-    if k.scan_supported(len(elems_p[1]), elems_p[1][0]):
+    if _kernel_takes(len(elems_p[1]), elems_p):
         return k.filter_scan_p(elems_p)
     return k.filter_scan_p_plain(elems_p)
 
@@ -424,19 +436,17 @@ def _scan_smooth_p(elems_p):
     """The reverse smooth-combine scan: (xT planes, RT planes)."""
     from ..kernels import assoc_scan as k
 
-    if k.scan_supported(len(elems_p[1]), elems_p[1][0]):
+    if _kernel_takes(len(elems_p[1]), elems_p):
         return k.smooth_scan_p(elems_p)
     return k.smooth_scan_p_plain(elems_p)
 
 
 def scan_route(nx: int, ny: int, like: torch.Tensor) -> str:
-    """The route name of a temporal-parallel pass over elements of
-    ``like``'s dtype and device: ``"cuda_temporal_parallel"`` when kernel
-    K takes the scans, ``"temporal_parallel_plain"`` otherwise."""
-    from ..kernels.assoc_scan import scan_supported
-
+    """The route name of a temporal-parallel pass whose output is
+    ``like``: ``"cuda_temporal_parallel"`` when kernel K takes the scans
+    (:func:`_kernel_takes`), ``"temporal_parallel_plain"`` otherwise."""
     planes = nx <= _PLANE_N and ny <= _PLANE_N
-    return ("cuda_temporal_parallel" if planes and scan_supported(nx, like)
+    return ("cuda_temporal_parallel" if planes and _kernel_takes(nx, like)
             else "temporal_parallel_plain")
 
 

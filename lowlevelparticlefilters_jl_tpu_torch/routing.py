@@ -19,7 +19,11 @@ Every verb takes ``method=``:
 
 Under ``torch.func`` transforms (``vmap``, ``grad``, ``jvp``) every verb
 takes the sequential route: a kernel reached through ``ctypes`` sees
-only a wrapper tensor, not the batch or the tangents.
+only a wrapper tensor, not the batch or the tangents.  Likewise, while
+autograd records and a tensor of the filter, its densities or callbacks,
+or the data requires grad (:func:`_needs_grad`), ``auto`` takes the
+sequential route and every kernel gate the kernel's plain twin: the
+kernels are forward-only, their wrappers raise on such a tensor.
 
 ``last_route()`` names the path the most recent verb took:
 ``"cuda_fused_scan"``, ``"fused_scan_plain"``,
@@ -37,6 +41,7 @@ only a wrapper tensor, not the batch or the tangents.
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Optional
 
 import torch
@@ -65,15 +70,43 @@ def _check_method(method: str) -> None:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
 
 
-def _tensor_leaves(v):
+def _code_names(code):
+    """The global names a code object and the functions nested in it
+    read."""
+    yield from code.co_names
+    for c in code.co_consts:
+        if isinstance(c, types.CodeType):
+            yield from _code_names(c)
+
+
+def _tensor_leaves(v, callbacks=False, seen=None):
+    """The tensors in ``v``: tuples and lists and dataclass fields; with
+    ``callbacks``, also what a function among them closes over or reads
+    as a global (a matrix in a lambda), and so on into the functions
+    those reach."""
     if isinstance(v, torch.Tensor):
         yield v
-    elif isinstance(v, (tuple, list)):
+        return
+    seen = set() if seen is None else seen
+    if id(v) in seen:
+        return
+    seen.add(id(v))
+    if isinstance(v, (tuple, list)):
         for x in v:
-            yield from _tensor_leaves(x)
+            yield from _tensor_leaves(x, callbacks, seen)
     elif dataclasses.is_dataclass(v) and not isinstance(v, type):
         for f in dataclasses.fields(v):
-            yield from _tensor_leaves(getattr(v, f.name))
+            yield from _tensor_leaves(getattr(v, f.name), callbacks, seen)
+    elif callbacks and isinstance(v, types.FunctionType):
+        for cell in v.__closure__ or ():
+            try:
+                yield from _tensor_leaves(cell.cell_contents, True, seen)
+            except ValueError:  # an empty cell
+                pass
+        g = v.__globals__
+        for name in _code_names(v.__code__):
+            if name in g:
+                yield from _tensor_leaves(g[name], True, seen)
 
 
 def _under_batch_trace(*vals) -> bool:
@@ -84,6 +117,20 @@ def _under_batch_trace(*vals) -> bool:
     sequential route, which the transform batches or differentiates."""
     wrapped = torch._C._functorch.is_functorch_wrapped_tensor
     return any(wrapped(t) for t in _tensor_leaves(vals))
+
+
+def _needs_grad(*vals) -> bool:
+    """True when autograd records (``torch.is_grad_enabled()``) and a
+    tensor among ``vals`` requires grad: a field of a filter or of its
+    densities, the data, a tensor derived from them (a kernel's
+    coefficients or elements) or a tensor a callback closes over or
+    reads as a global.  The CUDA kernels are
+    forward-only, so every ``auto`` route then takes the sequential path
+    or the kernel's plain twin, which autograd differentiates, as the
+    JAX package differentiates every route through the XLA scan
+    (``ops/pallas/adroute.py::route_ad``)."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in _tensor_leaves(vals, callbacks=True))
 
 
 def seed_from_generator(generator) -> int:
@@ -101,8 +148,7 @@ def route_pf_loglik(pf, u, y, p, generator, state0, method: str):
     from .kernels.pf_scan import kernel_admits, pf_loglik_fused
 
     _check_method(method)
-    wanted = method == "fused" or (method == "auto" and y.is_cuda)
-    if (not wanted or state0 is not None
+    if (not _want_fused(method, y) or state0 is not None
             or (p is not None and p is not getattr(pf, "p", None))
             or _under_batch_trace(pf, u, y, p)):
         _record("loglik", "sequential")
@@ -126,9 +172,8 @@ def route_pf_mean_trajectory(pf, u, y, p, generator, method: str):
     from .kernels.pf_scan import kernel_admits, pf_mean_fused
 
     _check_method(method)
-    wanted = method == "fused" or (method == "auto" and y.is_cuda)
     coef = None
-    if (wanted and generator is not None
+    if (_want_fused(method, y) and generator is not None
             and (p is None or p is getattr(pf, "p", None))
             and not _under_batch_trace(pf, u, y, p)):
         coef = kernel_admits(pf, u, y)
@@ -210,7 +255,8 @@ def _route_kalman(verb, f, u, y, p, method):
     _check_method(method)
     traj = verb == "forward_trajectory"
     T = y.shape[0]
-    if method == "sequential" or p is not None or _under_batch_trace(f, u, y):
+    if (method == "sequential" or p is not None or _under_batch_trace(f, u, y)
+            or method == "auto" and _needs_grad(f, u, y)):
         _record(verb, "sequential")
         return None
     if type(f) is KalmanFilter:
@@ -279,6 +325,7 @@ def route_smooth(f, u, y, p, method: str, kwargs: dict):
     fn = None
     if (method != "sequential" and not kwargs
             and not _under_batch_trace(f, u, y, p)
+            and not (method == "auto" and _needs_grad(f, u, y, p))
             and _want_parallel(method, y, T)):
         if type(f) is KalmanFilter and _kf_parallel_ok(f, T):
             fn = temporal.parallel_rts_smooth

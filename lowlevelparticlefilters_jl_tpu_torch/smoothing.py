@@ -180,7 +180,7 @@ def ffbs_smooth(pf, sol, M: int, generator: Optional[torch.Generator] = None,
     """
     from .kernels.ffbs import ffbs_backward, ffbs_kernel_supported
     from .ops.resample import resample
-    from .routing import _record, seed_from_generator
+    from .routing import _needs_grad, _record, seed_from_generator
 
     if backend not in FFBS_BACKENDS:
         raise ValueError(f"backend must be one of {FFBS_BACKENDS}, got "
@@ -194,7 +194,8 @@ def ffbs_smooth(pf, sol, M: int, generator: Optional[torch.Generator] = None,
                  strategy=getattr(pf, "resampling_strategy", "systematic"))
     xb_T = xf[-1][j]
     if backend != "plain":
-        ok = ffbs_kernel_supported(df, nx, xf)
+        ok = ffbs_kernel_supported(df, nx, xf) and (
+            backend == "kernel" or not _needs_grad(pf, sol, xb_T, u, p))
         if backend == "kernel" and not ok:
             raise ValueError(
                 "ffbs backend='kernel' needs a Gaussian dynamics density, "

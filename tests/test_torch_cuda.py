@@ -756,3 +756,154 @@ def test_pf_tracking_routes_on_card(cuda_device):
     assert resample_route.SYSTEMATIC_GATHER.launches == b0 + 59
     ll_kf = float(llpt.loglik(kf, u, y))
     assert abs(float(ll) - ll_kf) < 0.05 * abs(ll_kf)
+
+
+# ---- K's whole-element mode, grad-aware routing, the sharded verbs ---------
+
+
+@pytest.mark.parametrize("nx,T", [(1, 1), (2, 17), (3, 300), (8, 5000),
+                                  (2, 100_000)])
+def test_assoc_scan_full_matches_twin(cuda_device, nx, T):
+    """K's whole-element mode against its twin on generic elements (no
+    prior element, so A, eta and J stay nontrivial): every stack within
+    rtol 2e-4 and an absolute 2e-5 of its scale; the input is left as it
+    was; one launch."""
+    from lowlevelparticlefilters_jl_tpu_torch.parallel import temporal
+
+    g = torch.Generator().manual_seed(nx * 7 + T)
+    Qm, _ = torch.linalg.qr(torch.randn(nx, nx, generator=g))
+    eye = torch.eye(nx)
+    rep = lambda M: M.expand(T + 1, nx, nx).to(cuda_device)  # noqa: E731
+    el = temporal._filter_elements(
+        rep(0.9 * Qm), torch.zeros(T + 1, nx, device=cuda_device), rep(eye),
+        rep(0.01 * eye), rep(0.1 * eye),
+        (0.3 * torch.randn(T + 1, nx, generator=g)).to(cuda_device),
+        torch.zeros(nx, device=cuda_device), eye.to(cuda_device))
+    el = tuple(e[1:].contiguous() for e in el)
+    before = [e.clone() for e in el]
+    n0 = assoc_scan.ASSOC_SCAN_FULL.launches
+    got = assoc_scan.filter_scan_full(*el)
+    want = assoc_scan.filter_scan_full_plain(*el)
+    assert assoc_scan.ASSOC_SCAN_FULL.launches == n0 + 1
+    assert all(torch.equal(a, b) for a, b in zip(el, before))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=2e-4,
+                                   atol=2e-5 * (1 + float(b.abs().max())))
+
+
+def test_backward_on_every_auto_route(cuda_device):
+    """With a grad-requiring A (a filter field, or a tensor the callbacks
+    close over) every ``auto`` route on CUDA tensors keeps off the
+    forward-only kernels and ``backward`` gives a finite gradient: the KF
+    below and above T_PARALLEL (H, K), its smoother, the bank (F), the
+    EKF (I) and UKF (G), the PF loglik (A), the kernel-noise forward pass
+    (B, D), exact resampling (E), FFBS (J) and K's whole-element mode.
+    A kernel handed a tensor that requires grad raises, so a route that
+    reached one would fail here."""
+    from lowlevelparticlefilters_jl_tpu_torch.parallel import temporal
+
+    dev = cuda_device
+    g = torch.Generator().manual_seed(5)
+    ys = (0.3 * torch.randn(300, 2, generator=g)).to(dev)
+    us = torch.full((300, 1), 0.3, device=dev)
+
+    def A32():
+        return _t32(A, dev).requires_grad_()
+
+    def kf(At):
+        return convert.kalman_filter_from_numpy(
+            A, B, C, 0, R1, R2, dtype=torch.float32, device=dev).replace(A=At)
+
+    def pf(At, **kw):
+        Bt, Ct = _t32(B, dev), _t32(C, dev)
+        return convert.particle_filter_from_numpy(
+            2000, lambda x, u, p, t: At @ x + Bt @ u,
+            lambda x, u, p, t: Ct @ x, R1, R2, R1, device=dev, **kw)
+
+    def ekf(At, ukf=False):
+        make = llpt.make_ukf if ukf else llpt.make_ekf
+        Ct = _t32(C, dev)
+        return make(lambda x, u, p, t: At @ x + 0.01 * torch.sin(x),
+                    lambda x, u, p, t: Ct @ x, _t32(R1, dev), _t32(R2, dev),
+                    ny=2, nu=0)
+
+    def elements(At, y):
+        T = y.shape[0]
+        rep = lambda M: M.expand(T, 2, 2)  # noqa: E731
+        return temporal._filter_elements(
+            rep(At), torch.zeros(T, 2, device=dev), rep(_t32(C, dev)),
+            rep(_t32(R1, dev)), rep(_t32(R2, dev)), y,
+            torch.zeros(2, device=dev), torch.eye(2, device=dev))
+
+    def ffbs_out(xb, ll):
+        return xb.sum() + ll
+
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    cases = {
+        "KF T=100 (H)": lambda At: llpt.loglik(kf(At), us[:100], ys[:100]),
+        "KF T=300 (K)": lambda At: llpt.loglik(kf(At), us, ys),
+        "smooth (K)": lambda At: llpt.smooth(kf(At), us, ys).xT.sum(),
+        "bank (F)": lambda At: llpt.kf_bank_loglik(
+            kf(At), us, ys.expand(512, 300, 2).contiguous()).sum(),
+        "EKF (I)": lambda At: llpt.loglik(ekf(At), None, ys[:100]),
+        "UKF (G)": lambda At: llpt.loglik(ekf(At, ukf=True), None,
+                                          ys[:100]),
+        "PF (A)": lambda At: pf(At).loglik(us[:50], ys[:50],
+                                           generator=gen()),
+        "PF kernel noise (B, D)": lambda At: pf(
+            At, noise_backend="kernel", resample_threshold=1.0
+        ).forward_trajectory(us[:20], ys[:20], generator=gen()).ll,
+        "PF exact (E)": lambda At: pf(
+            At, exact_resample=True, resample_threshold=1.0
+        ).forward_trajectory(us[:20], ys[:20], generator=gen()).ll,
+        "FFBS (J)": lambda At: ffbs_out(*pf(At).smooth(
+            us[:20], ys[:20], M=64, generator=gen())),
+        "K-full": lambda At: assoc_scan.filter_scan_full(
+            *elements(At, ys))[1].sum(),
+    }
+    for name, fn in cases.items():
+        At = A32()
+        fn(At).backward()
+        assert At.grad is not None and bool(torch.isfinite(At.grad).all()) \
+            and float(At.grad.abs().sum()) > 0, name
+
+
+def test_sharded_verbs_on_card(cuda_device):
+    """The time-sharded KF (K-full) and the particle-sharded fused PF
+    (kernel A's segment mode) on a world of size 1 on NCCL: the KF ll
+    within 1e-4 of the float64 CPU parallel route, the PF ll within 2 %
+    of the KF at N = 2e4 with segments of 8 steps (at 32, a particle
+    cloud this small degenerates inside a segment: 2.1 % off on the
+    card)."""
+    import torch.distributed as dist
+
+    from lowlevelparticlefilters_jl_tpu_torch.parallel import sharded as sh
+
+    kf64 = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, device="cpu")
+    u = torch.full((4096, 1), 0.3, dtype=torch.float64)
+    _, u, y = llpt.simulate(kf64, u, torch.Generator().manual_seed(3))
+    kf32 = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2,
+                                            dtype=torch.float32,
+                                            device=cuda_device)
+    uc, yc = u.float().to(cuda_device), y.float().to(cuda_device)
+    mesh = sh.particle_mesh(device=cuda_device)
+    try:
+        assert dist.get_backend(mesh.group) == "nccl" and mesh.size == 1
+        n0 = assoc_scan.ASSOC_SCAN_FULL.launches
+        _, _, ll = sh.time_sharded_parallel_kf(kf32, uc, yc, mesh)
+        assert assoc_scan.ASSOC_SCAN_FULL.launches == n0 + 1
+        ref = float(llpt.loglik(kf64, u, y, method="parallel"))
+        assert abs(float(ll) - ref) < 1e-4 * abs(ref)
+        f, g = convert.linear_callbacks(A, B, C, device=cuda_device)
+        pf = convert.particle_filter_from_numpy(20_000, f, g, R1, R2, R1,
+                                                device=cuda_device)
+        s0 = pf_scan.PF_SEGMENT_SCAN.launches
+        llf = sh.sharded_pf_loglik_fused(
+            pf, uc[:200], yc[:200], torch.Generator(
+                device=cuda_device).manual_seed(0), mesh, segment=8)
+        assert pf_scan.PF_SEGMENT_SCAN.launches == s0 + 25
+        ref = float(llpt.loglik(kf64, u[:200], y[:200]))
+        assert abs(float(llf) - ref) < 0.02 * abs(ref)
+    finally:
+        dist.destroy_process_group()
