@@ -10,6 +10,10 @@ exits non-zero without its result lines):
 2. build: the kernels of ``lowlevelparticlefilters_jl_tpu_torch/csrc``.
 3. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, with its tolerance and the reason for it; times both.
+   Kernel C also against ``torch.randn`` at 2e5 and 2e6 normals: the
+   mean of 50 back-to-back calls by CUDA events (every kernel's clock),
+   the median (and the least) of 20 runs of 100 calls each, in turns, and
+   the profiler's device time of each.
 4. main path: the benchmark's 2-state model (bench.py:389-402) at
    N = 1e5, T = 1000, Neff threshold 0.1, through ``pf.loglik`` on CUDA
    tensors: kernel A, PF ll within 1 % of the exact KF ll; median time of
@@ -34,7 +38,10 @@ exits non-zero without its result lines):
 9. kernel I on ``A x + 0.01 sin x`` (tests/test_ukf_fused.py:88-98),
    T = 5e4: ``loglik`` under "auto", ``forward_trajectory`` with
    ``method="fused"``, and a case with user Jacobians; I against its twin
-   at T = 2000, the ll against float64 CPU sequential at T = 5000.
+   at T = 2000, the ll against float64 CPU sequential at T = 5000 and
+   5e4; the SM clock under load and cycles a step; where the toolkit has
+   ``cuobjdump``, the step loop's SASS (``kernels/sass.py``: instructions,
+   blocks, the hot path with no load from device memory, the chain bound).
 10. kernel G on the quadtank model (bench.py:695-712) under "auto" and
    the CV UKF with ``force_kernel=True``, T = 5e4, and an angle-wrap
    innovation hook (bench.py:211-233); G against its twin at T = 2000,
@@ -151,6 +158,39 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def device_ms(fn, name, reps=20):
+    """Device ms a call of the kernels whose name holds ``name``, by
+    ``torch.profiler`` over ``reps`` calls after a warm-up; None where the
+    profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def sm_clock_mhz(fn, reps):
+    """The SM clock ``nvidia-smi`` reads while ``reps`` queued calls of
+    ``fn`` run on the card (queue at least half a second of work)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout
+    torch.cuda.synchronize()
+    return float(out.split()[0])
+
+
 def bound(nbytes, ops):
     """Least time for the work: bytes over the memory rate or operations
     over the f32 peak, whichever is larger."""
@@ -260,11 +300,10 @@ def check_ref(what, ll, ref, tol=1e-4):
     return rel
 
 
-def per_step_ops_ekf(nx, ny, n_f, n_g, dual):
-    """Operations of one EKF step (csrc/ukf_scan.cuh): the callbacks (a
-    dual-number instruction costs nx + 1), the gain, the updates."""
-    cb = (n_f + n_g) * ((nx + 1) if dual else 1)
-    return (cb + 2 * ny * nx * nx + 2 * ny * ny * nx + 3 * ny * ny + ny ** 3
+def per_step_ops_ekf(nx, ny, n_f, n_g):
+    """Operations of one EKF step (csrc/ukf_scan.cuh): the
+    value-and-Jacobian callbacks' instructions, the gain, the updates."""
+    return (n_f + n_g + 2 * ny * nx * nx + 2 * ny * ny * nx + 3 * ny * ny + ny ** 3
             + 4 * ny * ny * nx + 2 * nx * ny + 2 * nx * nx * ny
             + 3 * nx * nx + ny * ny + 3 * ny + 4 + 6 * nx ** 3
             + 3 * nx * nx)
@@ -506,21 +545,48 @@ def whole_scan_phases(dev, kernels, stats, launches, smi):
     ref9m = float(llpt.loglik(e9_64, None, ys9.double(), method="sequential"))
     rel9m = check_ref(f"I T={T_SCAN}", ll9, ref9m)
     comp9 = ukf_scan._ekf_programs(e9, 0, dev)
-    n_f, n_g = (len(p.instrs) for _, p in comp9.progs[:2])
+    n_f, n_g = (len(p.instrs) for _, p in comp9.progs)
+    ms9 = cuda_ms(lambda: ukf_scan.ekf_scan(e9, y9), 5)
+    mhz = sm_clock_mhz(lambda: ukf_scan.ekf_scan(e9, y9),
+                       max(5, math.ceil(500 / ms9)))
+    cycles = ms9 * 1e3 * mhz / T_SCAN
     stats["ekf_scan"] = dict(
-        max_abs_err=err9, T=T_SCAN, plain_T=T_TWIN, library_ms=None,
-        ms=cuda_ms(lambda: ukf_scan.ekf_scan(e9, y9), 5),
+        max_abs_err=err9, T=T_SCAN, plain_T=T_TWIN, library_ms=None, ms=ms9,
+        ms_user_jac=cuda_ms(lambda: ukf_scan.ekf_scan(e9j, y9), 5),
+        sm_mhz=mhz, cycles_a_step=cycles,
         plain_ms=cuda_ms(lambda: ukf_scan.ekf_scan_plain(e9, y9t), 1),
         # ys, x0, P0, R1, R2, the callbacks' constants, ll
         **bound(4 * (T_SCAN * 2 + 4 + 16 + 16 + 4 + 1 + sum(
             p.n_consts for _, p in comp9.progs)),
-            T_SCAN * per_step_ops_ekf(4, 2, n_f, n_g, True)))
+            T_SCAN * per_step_ops_ekf(4, 2, n_f, n_g)))
+    # the compiled step loop (kernels/sass.py), where the toolkit has
+    # cuobjdump: no load from device memory in it, and its dependent chain
+    # as a bound: T x the chain's cycles at this clock
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import sass
+    try:
+        listing = sass.disassemble(comp9.library()._name)
+    except RuntimeError as exc:
+        log("I", f"step loop not read: {exc}")
+    else:
+        for tag, f in (("", e9), (" user Jacobians", e9j)):
+            text = (listing if f is e9 else sass.disassemble(
+                ukf_scan._ekf_programs(f, 0, dev).library()._name))
+            for traj in (False, True):
+                loop = sass.step_loop(text, "ekf_scan_kernel", traj)
+                require(loop.get("LDG", 0) == 0, f"I{tag} traj={traj}: no "
+                        f"load from device memory in the step loop {loop}")
+                log("I", f"step loop{tag} traj={traj}: {loop}")
+                if f is e9 and not traj:
+                    stats["ekf_scan"].update(
+                        sass_loop=loop, chain_bound_ms=T_SCAN
+                        * loop["chain_cycles"] / (mhz * 1e3))
     log("I ekf_scan", f"T={T_SCAN}: ll {ll9}, user Jacobians {ll9j}, rel "
         f"{rel9m:.3g} vs f64 sequential; T={T_REF} rel {rel9:.3g}; "
-        f"launches {path9}; "
-        f"{stats['ekf_scan']}")
+        f"launches {path9}; {cycles:.0f} cycles a step at {mhz:g} MHz; "
+        f"{stats['ekf_scan']} ({smi})")
     report("I", EKF, lambda: llpt.loglik(e9, None, y9), *ts9)
-    log("I", f"user-Jacobian filter: tracing {ts9j[0]} s, build {ts9j[1]} s")
+    log("I", f"user-Jacobian filter: {stats['ekf_scan']['ms_user_jac']:.3f} "
+        f"ms by CUDA events; tracing {ts9j[0]} s, build {ts9j[1]} s")
 
     # ---- 10. kernel G ---------------------------------------------------------
     def angle_ukf(d, dt):
@@ -1494,14 +1560,43 @@ def main():
                             device=dev).reshape(shape)
     err = float((z - zp).abs().max())
     require(err <= 1e-6, f"normal within 1e-6 (got {err:.3g})")
+    # the wrapper and torch.randn at the main path's 2e5 normals and at
+    # N = 1e6's 2e6: `ms` and `library_ms` the mean of 50 back-to-back
+    # calls by CUDA events (the clock of every kernel here); beside them
+    # the median of 20 runs of 100 calls each, in turns (C, randn, randn,
+    # C, ten times), since both calls are host-bound and neighbouring runs
+    # on a shared host differ by up to half; the device time of each
+    # kernel alone by the profiler
+    c_rows = {}
+    for n in (N_MAIN * 2, 2_000_000):
+        shp = (n // 2, 2)
+        calls = (lambda: noise.normal(7, shp, tag=noise.TAG_INIT,  # noqa
+                                      device=dev),
+                 lambda: torch.randn(shp, device=dev))  # noqa: E731
+        times = ([], [])
+        for k in (0, 1, 1, 0) * 10:
+            times[k].append(cuda_ms(calls[k], 100))
+        c_rows[n] = dict(
+            ms=cuda_ms(calls[0], 50), library_ms=cuda_ms(calls[1], 50),
+            ms_turns=statistics.median(times[0]),
+            library_ms_turns=statistics.median(times[1]),
+            device_ms=device_ms(calls[0], "normal_kernel"),
+            library_device_ms=device_ms(calls[1], "distribution"))
+        r = c_rows[n]
+        log("C normal", f"n={n}: by CUDA events a call, 50 back to back: "
+            f"{r['ms']:.5f} ms, torch.randn {r['library_ms']:.5f}; 20 runs "
+            f"of 100 in turns, median (least): {r['ms_turns']:.5f} "
+            f"({min(times[0]):.5f}), torch.randn {r['library_ms_turns']:.5f} "
+            f"({min(times[1]):.5f}); device {r['device_ms']} / "
+            f"{r['library_device_ms']} ms by torch.profiler ({smi})")
+    small, big = c_rows[N_MAIN * 2], c_rows[2_000_000]
     stats["normal"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: noise.normal(7, shape, tag=noise.TAG_INIT,
-                                        device=dev), 50),
         plain_ms=cuda_ms(lambda: noise.normal_plain(
             7, N_MAIN * 2, tag=noise.TAG_INIT, device=dev), 5),
-        # the same distribution from another stream, in one PyTorch call
-        library_ms=cuda_ms(lambda: torch.randn(shape, device=dev), 50),
+        # library_ms: the same distribution from another stream, in one
+        # PyTorch call
+        **small, **{f"{k}_2e6": v for k, v in big.items()},
         **bound(4 * N_MAIN * 2, -(-N_MAIN * 2 // 4) * PHILOX_OPS
                 + N_MAIN * 2 * NORMAL_OPS))
     log("C normal", f"bits == plain == curand over {ctr.shape[0]} counters; "

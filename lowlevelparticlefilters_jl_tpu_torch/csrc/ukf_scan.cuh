@@ -9,15 +9,15 @@
 //
 // This file is not compiled on its own.  kernels/ukf_scan.py generates one
 // source per filter: the sizes (LLPF_NX, LLPF_NY, LLPF_NU), the kind
-// (LLPF_UKF or LLPF_EKF), the hook and Jacobian switches, and the user
-// callbacks as scalar code (kernels/callback_codegen.py: cb_f, cb_g and,
-// where present, cb_fjac, cb_gjac, cb_inn, cb_mean, cb_smean), then
-// includes this file; nvcc builds it for sm_90a at first use.  The
-// callbacks' tensor constants arrive in `c`, read on each call.
+// (LLPF_UKF or LLPF_EKF), the hook switches, the count of the callbacks'
+// constants (LLPF_NC), and the user callbacks as scalar code
+// (kernels/callback_codegen.py: for G cb_f, cb_g and, where present,
+// cb_inn, cb_mean, cb_smean; for I cb_fvj and cb_gvj, each the value and
+// then the Jacobian in x, differentiated at code generation or the user's
+// Ajac/Cjac), then includes this file; nvcc builds it for sm_90a at first
+// use.  The callbacks' tensor constants arrive in `c`, read on each call.
 //
-// Design.  I: one thread runs the recursion, its state in registers; the
-// measurement and dynamics are evaluated on Dual<NX> numbers, which gives
-// each value and its Jacobian in one pass.  G: one warp; lane i < 2 NX + 1
+// Design.  I: see ekf_scan_kernel.  G: one warp; lane i < 2 NX + 1
 // evaluates the callback on sigma point i, and the UT sums are butterfly
 // shuffles, so every lane holds every sum.  The Cholesky factors and the
 // solves are the same on all lanes (each lane computes them; nothing is
@@ -25,10 +25,10 @@
 // each lane gathers with shuffles.  In both, a second warp stages y and u
 // into shared memory a chunk of steps ahead (scan_common.cuh).
 //
-// Bound on the card: latency.  Each step is a serial chain of a few
-// hundred dependent operations (two callback passes, two Cholesky
-// factorizations for G, the solves, the shuffles); one SM of 132 works.
-// Not fixed here.
+// Bound on the card: latency.  Each step is a serial chain of dependent
+// operations (two callback passes, the Cholesky factorizations, the
+// solves; for G the shuffles) on one warp of one SM of 132.  The chain is
+// read from the SASS by kernels/sass.py (PERF.md).
 //
 // TPU workarounds not ported: the 128-step lane blocks and iota-mask step
 // extraction, _meta_acc's static-offset read-modify-writes, the rank-2-only
@@ -36,7 +36,7 @@
 // reshapes, the 64 MiB VMEM solution budget, default_matmul_precision
 // ("highest") (all arithmetic here is plain float32).
 #pragma once
-#include "dual.cuh"
+#include "callback_ops.cuh"
 #include "scan_common.cuh"
 
 namespace {
@@ -136,41 +136,95 @@ __device__ __forceinline__ void copy_mat(const float (&a)[N][N],
 // kernel I: the EKF (ukf_scan.py:1183-1230)
 // ---------------------------------------------------------------------------
 
-// value and Jacobian of a callback at x: by Dual<NX> numbers, or from the
-// user's Jacobian callback
-#define LLPF_VALUE_AND_JAC(CB, CBJAC, USER, NOUT, val, jac)                 \
-  if (USER) {                                                               \
-    CB<float>(x, u, &tk, c, val);                                           \
-    float flat_[NOUT * NX];                                                 \
-    CBJAC<float>(x, u, &tk, c, flat_);                                      \
-    _Pragma("unroll") for (int r_ = 0; r_ < NOUT; ++r_)                     \
-        _Pragma("unroll") for (int q_ = 0; q_ < NX; ++q_)                   \
-            jac[r_][q_] = flat_[r_ * NX + q_];                              \
-  } else {                                                                  \
-    Dual<NX> xd_[NX], od_[NOUT];                                            \
-    _Pragma("unroll") for (int q_ = 0; q_ < NX; ++q_) {                     \
-      xd_[q_] = Dual<NX>(x[q_]);                                            \
-      xd_[q_].d[q_] = 1.f;                                                  \
-    }                                                                       \
-    CB<Dual<NX>>(xd_, u, &tk, c, od_);                                      \
-    _Pragma("unroll") for (int r_ = 0; r_ < NOUT; ++r_) {                   \
-      val[r_] = od_[r_].v;                                                  \
-      _Pragma("unroll") for (int q_ = 0; q_ < NX; ++q_) jac[r_][q_] =       \
-          od_[r_].d[q_];                                                    \
-    }                                                                       \
+constexpr int NTX = NX * (NX + 1) / 2, NTY = NY * (NY + 1) / 2;
+// the callbacks' constants (LLPF_NC floats): in registers up to 64, else
+// in shared memory while they leave room for the smallest chunk (8 steps),
+// else read from c in device memory as the step needs them
+constexpr int NC = LLPF_NC > 0 ? LLPF_NC : 1;
+constexpr int kSmemBytes = 46 * 1024;
+// the ring entry of a step: e [NY] and L [NTY] (lower, packed) for the ll;
+// with the trajectory also x, R, xt, Rt, S (packed) and K [NX][NY]
+constexpr int kOffL = NY, kOffXp = NY + NTY, kOffRp = kOffXp + NX,
+              kOffXt = kOffRp + NTX, kOffRt = kOffXt + NX,
+              kOffS = kOffRt + NTX, kOffK = kOffS + NTY,
+              kRingLL = kOffXp, kRingTraj = kOffK + NX * NY;
+
+// steps a chunk: 128, halved while the staged inputs, the ring's two
+// buffers and `fixed` bytes (the constants' copy) would pass kSmemBytes of
+// static shared memory
+__host__ __device__ constexpr int ekf_chunk(int floats_a_step, int fixed) {
+  int ch = 128;
+  while (ch > 8 && 2 * ch * floats_a_step * 4 + fixed > kSmemBytes) ch /= 2;
+  return ch;
+}
+
+// whether the constants go to shared memory beside a ring of this width
+__host__ __device__ constexpr bool ekf_consts_shared(int floats_a_step) {
+  return LLPF_NC > 64 && 2 * 8 * floats_a_step * 4 + NC * 4 <= kSmemBytes;
+}
+
+// index of (i, j) in a lower-packed symmetric n x n matrix
+__host__ __device__ constexpr int pk(int i, int j) {
+  return i >= j ? i * (i + 1) / 2 + j : j * (j + 1) / 2 + i;
+}
+
+// the ll term of one ring entry: w = L^{-1} e, -(|w|^2 + 2 log|L| +
+// NY log 2 pi) / 2 (gain_and_ll's formulas)
+__device__ __forceinline__ float ring_ll(const float* r) {
+  float w[NY], q = 0.f, ld = 0.f;
+#pragma unroll
+  for (int i = 0; i < NY; ++i) {
+    float s = r[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s -= r[kOffL + pk(i, k)] * w[k];
+    const float d = r[kOffL + pk(i, i)];
+    w[i] = s / d;
+    q += w[i] * w[i];
+    ld += logf(d);
   }
+  return -0.5f * (q + 2.f * ld + (float)(NY * 1.8378770664093453));
+}
 
-#if !LLPF_USER_CJAC
-template <class S>
-__device__ __forceinline__ void cb_gjac(const float*, const float*,
-                                        const float*, const float*, S*) {}
-#endif
-#if !LLPF_USER_AJAC
-template <class S>
-__device__ __forceinline__ void cb_fjac(const float*, const float*,
-                                        const float*, const float*, S*) {}
-#endif
+// copy the steps of one ring chunk into the [T, ...] solution, lane by
+// lane so neighbouring lanes write neighbouring addresses; a packed field
+// is mirrored into its full matrix
+template <int RW>
+__device__ __forceinline__ void ring_field(float* __restrict__ dst,
+                                           const float* ring, int64_t t0,
+                                           int tc, int off, int w, int n,
+                                           bool packed, int lane) {
+  for (int k = lane; k < tc * w; k += 32) {
+    const int s = k / w, q = k - s * w;
+    dst[t0 * w + k] = ring[s * RW + off + (packed ? pk(q / n, q % n) : q)];
+  }
+}
 
+template <int RW>
+__device__ __forceinline__ void ring_solution(const ScanOut& out,
+                                              const float* ring, int64_t t0,
+                                              int tc, int lane) {
+  ring_field<RW>(out.x, ring, t0, tc, kOffXp, NX, NX, false, lane);
+  ring_field<RW>(out.R, ring, t0, tc, kOffRp, NX * NX, NX, true, lane);
+  ring_field<RW>(out.xt, ring, t0, tc, kOffXt, NX, NX, false, lane);
+  ring_field<RW>(out.Rt, ring, t0, tc, kOffRt, NX * NX, NX, true, lane);
+  ring_field<RW>(out.e, ring, t0, tc, 0, NY, NY, false, lane);
+  ring_field<RW>(out.S, ring, t0, tc, kOffS, NY * NY, NY, true, lane);
+  ring_field<RW>(out.K, ring, t0, tc, kOffK, NX * NY, NY, false, lane);
+}
+
+// Design.  One thread (the worker) runs the recursion, its state and the
+// callbacks' constants in registers (beyond 64 constants, in shared or
+// device memory: above), and does only the work the next step
+// depends on: the value-and-Jacobian callbacks (cb_gvj, cb_fvj: the
+// Jacobians differentiated at code generation, or the user's), the
+// symmetric products built once and mirrored, the Cholesky factor with
+// one rsqrtf a diagonal entry and multiplications by the reciprocal
+// diagonal everywhere else.  Each step it leaves e and L (and, for the
+// trajectory, the solution fields) in a shared-memory ring; the second
+// warp, which also stages y and u a chunk ahead, reads the previous chunk
+// from the ring, sums the ll terms (each lane its steps in order, then a
+// butterfly over the lanes) and writes the trajectory with coalesced
+// stores.  The two warps meet at one __syncthreads a chunk.
 template <bool TRAJ>
 __global__ void __launch_bounds__(64)
     ekf_scan_kernel(const float* __restrict__ ys, const float* __restrict__ us,
@@ -178,12 +232,27 @@ __global__ void __launch_bounds__(64)
                     const float* __restrict__ R1, const float* __restrict__ R2,
                     const float* __restrict__ c, float alpha, float Ts, int T,
                     float* __restrict__ ll_out, ScanOut out) {
-  __shared__ float sbuf[2][kChunk * (NY + NUB)];
-  const int tid = threadIdx.x;
+  constexpr int RW = TRAJ ? kRingTraj : kRingLL;
+  constexpr bool kCsShared = ekf_consts_shared(RW + NY + NUB);
+  constexpr int CH = ekf_chunk(RW + NY + NUB, kCsShared ? NC * 4 : 0);
+  __shared__ float sbuf[2][CH * (NY + NUB)];
+  __shared__ float ring[2][CH * RW];
+  const int tid = threadIdx.x, lane = tid & 31;
   const bool producer = tid >= 32, worker = tid == 0;
-  const int nch = (T + kChunk - 1) / kChunk;
+  const int nch = (T + CH - 1) / CH;
+#if LLPF_NC <= 64
+  float cs[NC];
+  if (worker) {
+#pragma unroll
+    for (int k = 0; k < LLPF_NC; ++k) cs[k] = c[k];
+  }
+#else
+  __shared__ float cs_smem[kCsShared ? NC : 1];
+  if constexpr (kCsShared)
+    for (int k = tid; k < LLPF_NC; k += 64) cs_smem[k] = c[k];
+  const float* cs = kCsShared ? cs_smem : c;
+#endif
   float x[NX], R[NX][NX], R1m[NX][NX], R2m[NY][NY];
-  float ll = 0.f;
   if (worker) {
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
@@ -199,103 +268,170 @@ __global__ void __launch_bounds__(64)
 #pragma unroll
       for (int j = 0; j < NY; ++j) R2m[i][j] = R2[i * NY + j];
   }
-  if (producer && nch > 0) stage_chunk(sbuf[0], ys, us, 0, T, tid - 32);
+  auto stage = [&](int ch) {
+    const int t0 = ch * CH, tc = min(CH, T - t0);
+    stage_rows(sbuf[ch & 1], ys, NY, t0, tc, lane, 32);
+    stage_rows(sbuf[ch & 1] + CH * NY, us, NU, t0, tc, lane, 32);
+  };
+  float ll = 0.f;  // the second warp's lane sums
+  auto consume = [&](int ch) {
+    const int t0 = ch * CH, tc = min(CH, T - t0);
+    const float* r = ring[ch & 1];
+    for (int s = lane; s < tc; s += 32) ll += ring_ll(r + s * RW);
+    if constexpr (TRAJ) ring_solution<RW>(out, r, t0, tc, lane);
+  };
+  if (producer && nch > 0) stage(0);
   __syncthreads();
   for (int ch = 0; ch < nch; ++ch) {
-    if (producer && ch + 1 < nch)
-      stage_chunk(sbuf[(ch + 1) & 1], ys, us, ch + 1, T, tid - 32);
+    if (producer) {
+      if (ch + 1 < nch) stage(ch + 1);
+      if (ch > 0) consume(ch - 1);
+    }
     if (worker) {
       const float* b = sbuf[ch & 1];
-      const int t0 = ch * kChunk, tc = min(kChunk, T - t0);
+      const int t0 = ch * CH, tc = min(CH, T - t0);
       for (int s = 0; s < tc; ++s) {
         const int64_t t = t0 + s;
         const float* y = b + s * NY;
-        const float* u = b + kChunk * NY + s * NU;
+        const float* u = b + CH * NY + s * NU;
+        float* r = ring[ch & 1] + s * RW;
         const float tk = (float)t * Ts;
         // ---- correct ------------------------------------------------------
-        float gx[NY], Cj[NY][NX];
-        LLPF_VALUE_AND_JAC(cb_g, cb_gjac, LLPF_USER_CJAC, NY, gx, Cj)
-        float CR[NY][NX], Kt[NY][NX], CC[NY][NY], S[NY][NY], L[NY][NY], e[NY];
+        float gv[NY + NY * NX];
+        cb_gvj(x, u, &tk, cs, gv);
+        const float* Cj = gv + NY;  // [NY][NX]
+        float CR[NY][NX], S[NY][NY], L[NY][NY], rd[NY], Kt[NY][NX], e[NY];
 #pragma unroll
         for (int j = 0; j < NY; ++j)
 #pragma unroll
           for (int i = 0; i < NX; ++i) {
             float a = 0.f;
 #pragma unroll
-            for (int q = 0; q < NX; ++q) a += Cj[j][q] * R[q][i];
+            for (int q = 0; q < NX; ++q) a += Cj[j * NX + q] * R[q][i];
             CR[j][i] = a;
-            Kt[j][i] = a;
           }
 #pragma unroll
         for (int i = 0; i < NY; ++i)
 #pragma unroll
-          for (int j = 0; j < NY; ++j) {
+          for (int j = i; j < NY; ++j) {
             float a = 0.f;
 #pragma unroll
-            for (int q = 0; q < NX; ++q) a += CR[i][q] * Cj[j][q];
-            CC[i][j] = a;
+            for (int q = 0; q < NX; ++q) a += CR[i][q] * Cj[j * NX + q];
+            S[i][j] = S[j][i] = a + R2m[i][j];
+          }
+        // L = chol(S): one rsqrtf a diagonal entry, products elsewhere
+#pragma unroll
+        for (int i = 0; i < NY; ++i)
+#pragma unroll
+          for (int j = 0; j <= i; ++j) {
+            float a = S[i][j];
+#pragma unroll
+            for (int k = 0; k < j; ++k) a -= L[i][k] * L[j][k];
+            if (i == j) {
+              rd[i] = rsqrtf(a);
+              L[i][i] = a * rd[i];
+            } else {
+              L[i][j] = a * rd[j];
+            }
+          }
+        // K^T = S^{-1} C R: L^{-1} then L^{-T}, by the reciprocal diagonal
+#pragma unroll
+        for (int j = 0; j < NY; ++j)
+#pragma unroll
+          for (int i = 0; i < NX; ++i) {
+            float a = CR[j][i];
+#pragma unroll
+            for (int k = 0; k < j; ++k) a -= L[j][k] * Kt[k][i];
+            Kt[j][i] = a * rd[j];
           }
 #pragma unroll
-        for (int i = 0; i < NY; ++i) {
-          e[i] = y[i] - gx[i];
+        for (int j = NY - 1; j >= 0; --j)
 #pragma unroll
-          for (int j = 0; j < NY; ++j)
-            S[i][j] = 0.5f * (CC[i][j] + CC[j][i]) + R2m[i][j];
+          for (int i = 0; i < NX; ++i) {
+            float a = Kt[j][i];
+#pragma unroll
+            for (int k = j + 1; k < NY; ++k) a -= L[k][j] * Kt[k][i];
+            Kt[j][i] = a * rd[j];
+          }
+#pragma unroll
+        for (int j = 0; j < NY; ++j) {
+          e[j] = y[j] - gv[j];
+          r[j] = e[j];
+#pragma unroll
+          for (int k = 0; k <= j; ++k) r[kOffL + pk(j, k)] = L[j][k];
         }
-        chol_lower(S, L, NY);
-        float xp[NX], Rp[NX][NX];
         if (TRAJ) {
 #pragma unroll
-          for (int i = 0; i < NX; ++i) xp[i] = x[i];
-          copy_mat(R, Rp);
+          for (int i = 0; i < NX; ++i) {
+            r[kOffXp + i] = x[i];
+#pragma unroll
+            for (int j = 0; j <= i; ++j) r[kOffRp + pk(i, j)] = R[i][j];
+          }
+#pragma unroll
+          for (int i = 0; i < NY; ++i)
+#pragma unroll
+            for (int j = 0; j <= i; ++j) r[kOffS + pk(i, j)] = S[i][j];
         }
-        ll += gain_and_ll(L, e, Kt, x);
-        float KC[NX][NX];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+          float a = x[i];
+#pragma unroll
+          for (int j = 0; j < NY; ++j) a += e[j] * Kt[j][i];
+          x[i] = a;
+        }
+        // R - K C R, its upper triangle, mirrored
 #pragma unroll
         for (int i = 0; i < NX; ++i)
 #pragma unroll
-          for (int j = 0; j < NX; ++j) {
+          for (int j = i; j < NX; ++j) {
             float a = 0.f;
 #pragma unroll
             for (int q = 0; q < NY; ++q) a += Kt[q][i] * CR[q][j];
-            KC[i][j] = R[i][j] - a;
+            R[i][j] = R[j][i] = R[i][j] - a;
           }
+        if (TRAJ) {
 #pragma unroll
-        for (int i = 0; i < NX; ++i)
+          for (int i = 0; i < NX; ++i) {
+            r[kOffXt + i] = x[i];
 #pragma unroll
-          for (int j = 0; j < NX; ++j) R[i][j] = 0.5f * (KC[i][j] + KC[j][i]);
-        if (TRAJ) write_step(out, t, xp, Rp, x, R, e, S, Kt);
+            for (int j = 0; j <= i; ++j) r[kOffRt + pk(i, j)] = R[i][j];
+#pragma unroll
+            for (int j = 0; j < NY; ++j) r[kOffK + i * NY + j] = Kt[j][i];
+          }
+        }
         // ---- predict ------------------------------------------------------
-        float xn[NX], Aj[NX][NX], AR[NX][NX];
-        LLPF_VALUE_AND_JAC(cb_f, cb_fjac, LLPF_USER_AJAC, NX, xn, Aj)
+        float fv[NX + NX * NX], AR[NX][NX];
+        cb_fvj(x, u, &tk, cs, fv);
+        const float* Aj = fv + NX;  // [NX][NX]
 #pragma unroll
         for (int i = 0; i < NX; ++i)
 #pragma unroll
           for (int j = 0; j < NX; ++j) {
             float a = 0.f;
 #pragma unroll
-            for (int q = 0; q < NX; ++q) a += Aj[i][q] * R[q][j];
+            for (int q = 0; q < NX; ++q) a += Aj[i * NX + q] * R[q][j];
             AR[i][j] = a;
           }
 #pragma unroll
         for (int i = 0; i < NX; ++i) {
 #pragma unroll
-          for (int j = 0; j < NX; ++j) {
-            float a = 0.f, b2 = 0.f;
+          for (int j = i; j < NX; ++j) {
+            float a = 0.f;
 #pragma unroll
-            for (int q = 0; q < NX; ++q) {
-              a += AR[i][q] * Aj[j][q];
-              b2 += AR[j][q] * Aj[i][q];
-            }
-            R[i][j] = alpha * (0.5f * (a + b2)) + R1m[i][j];
+            for (int q = 0; q < NX; ++q) a += AR[i][q] * Aj[j * NX + q];
+            R[i][j] = R[j][i] = alpha * a + R1m[i][j];
           }
-          x[i] = xn[i];
+          x[i] = fv[i];
         }
       }
     }
     __syncthreads();
   }
-  if (worker) ll_out[0] = ll;
+  if (producer) {
+    if (nch > 0) consume(nch - 1);
+    ll = warp_sum(ll);
+    if (lane == 0) ll_out[0] = ll;
+  }
 }
 
 template <bool TRAJ>
@@ -349,17 +485,15 @@ __device__ __forceinline__ void gather(const float (&v)[N],
 }
 
 #if !LLPF_HOOK_MEAN
-template <class S>
-__device__ __forceinline__ void cb_mean(const float*, const float*, S*) {}
+__device__ __forceinline__ void cb_mean(const float*, const float*, float*) {}
 #endif
 #if !LLPF_HOOK_SMEAN
-template <class S>
-__device__ __forceinline__ void cb_smean(const float*, const float*, S*) {}
+__device__ __forceinline__ void cb_smean(const float*, const float*,
+                                         float*) {}
 #endif
 #if !LLPF_HOOK_INN
-template <class S>
 __device__ __forceinline__ void cb_inn(const float*, const float*,
-                                       const float*, S*) {}
+                                       const float*, float*) {}
 #endif
 
 template <bool TRAJ>
@@ -412,11 +546,11 @@ __global__ void __launch_bounds__(64)
         // ---- correct ------------------------------------------------------
         float sp[NX], yv[NY], ym[NY];
         sigma_point(x, R, Wsc, lane, sp);
-        cb_g<float>(sp, u, &tk, c, yv);
+        cb_g(sp, u, &tk, c, yv);
         if (LLPF_HOOK_MEAN) {
           float all[NSIG * NY];
           gather(yv, all);
-          cb_mean<float>(all, c, ym);
+          cb_mean(all, c, ym);
         } else {
 #pragma unroll
           for (int j = 0; j < NY; ++j) ym[j] = warp_sum(wmean * yv[j]);
@@ -445,7 +579,7 @@ __global__ void __launch_bounds__(64)
           for (int j = 0; j < NY; ++j) Kt[j][i] = warp_sum(dx[i] * wcov * dy[j]);
         chol_lower(S, L, NY);
         if (LLPF_HOOK_INN) {
-          cb_inn<float>(y, ym, c, e);
+          cb_inn(y, ym, c, e);
         } else {
 #pragma unroll
           for (int j = 0; j < NY; ++j) e[j] = y[j] - ym[j];
@@ -487,11 +621,11 @@ __global__ void __launch_bounds__(64)
         // ---- predict ------------------------------------------------------
         float pv[NX], xn[NX];
         sigma_point(x, R, Wsc, lane, sp);
-        cb_f<float>(sp, u, &tk, c, pv);
+        cb_f(sp, u, &tk, c, pv);
         if (LLPF_HOOK_SMEAN) {
           float all[NSIG * NX];
           gather(pv, all);
-          cb_smean<float>(all, c, xn);
+          cb_smean(all, c, xn);
         } else {
 #pragma unroll
           for (int i = 0; i < NX; ++i) xn[i] = warp_sum(wmean * pv[i]);

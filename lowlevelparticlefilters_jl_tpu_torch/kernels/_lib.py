@@ -61,7 +61,7 @@ _GEN_SIGNATURES = {
     "llpf_ukf_scan": [_P] * 7 + [_F] * 6 + [_I] + [_P] * 9,
 }
 # headers the generated sources include
-_GEN_HEADERS = ("ukf_scan.cuh", "dual.cuh", "scan_common.cuh")
+_GEN_HEADERS = ("ukf_scan.cuh", "callback_ops.cuh", "scan_common.cuh")
 
 
 @dataclass
@@ -182,11 +182,25 @@ def default_device(device=None):
     return torch.device("cuda")
 
 
+_RAW_STREAM: list = []
+
+
+def raw_stream_fn():
+    """The function ``i -> pointer`` that reads device i's current CUDA
+    stream without building a ``torch.cuda.Stream`` object, resolved
+    once."""
+    if not _RAW_STREAM:
+        import torch
+
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        _RAW_STREAM.append(raw if raw is not None else (
+            lambda i: torch.cuda.current_stream(i).cuda_stream))
+    return _RAW_STREAM[0]
+
+
 def stream_ptr(t) -> int:
     """The current CUDA stream of ``t``'s device, as a pointer."""
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return raw_stream_fn()(t.get_device())
 
 
 def require_cuda_f32(name: str, t, shape=None) -> None:

@@ -20,15 +20,18 @@ program over scalars (:class:`Program`):
   integer type raises :class:`CodegenError`; the caller then takes the
   sequential route, as the JAX package does when ``_supported`` is false.
 
-A program prints as a CUDA C++ function template
-``template <class S> void name(const S* in0, const float* in1, ...,
-const float* c, S* out)`` (:meth:`Program.cpp`) over the helpers of
-``csrc/dual.cuh``: with ``S = float`` it computes the value, with
-``S = Dual<N>`` also its Jacobian by forward-mode dual numbers, the
-counterpart of the in-kernel ``jax.jacfwd``.  :meth:`Program.evaluate`
-runs the same program in Python, on floats or on :class:`PyDual`
-numbers with the same derivative rules, so the CPU tests hold the
-lowering against the callback and ``torch.func.jacfwd``.
+A program prints as a CUDA C++ function over floats,
+``void name(const float* in0, ..., const float* c, float* out)``
+(:meth:`Program.cpp`), over the helpers of ``csrc/callback_ops.cuh``.
+Kernel I needs each callback's Jacobian in x as well: :meth:`Program.jacobian`
+differentiates the program symbolically, in forward mode, at code
+generation (the counterpart of the in-kernel ``jax.jacfwd``), so the
+kernel runs one straight-line float program for the value and the
+Jacobian, and the structural zeros and unit factors of the tangents cost
+nothing: the Jacobian entry of an affine term is the constant itself.
+:meth:`Program.evaluate` runs any program in Python, so the CPU tests
+hold the lowering and the derivative rules against the callback and
+``torch.func.jacfwd``.
 
 ``atan2`` is admitted: its exclusion in the JAX package is a Mosaic
 lowering gap, and CUDA has ``atan2f``.
@@ -74,47 +77,9 @@ class Var:
 
 
 # ---------------------------------------------------------------------------
-# Scalar semantics: the Python evaluation (floats or PyDual) of every
-# instruction, mirrored by csrc/dual.cuh
+# Scalar semantics: the Python evaluation of every instruction, mirrored
+# by csrc/callback_ops.cuh, and its derivative rules
 # ---------------------------------------------------------------------------
-
-
-class PyDual:
-    """A forward-mode dual number: value ``v`` and tangent vector ``d``."""
-
-    __slots__ = ("v", "d")
-
-    def __init__(self, v: float, d: np.ndarray):
-        self.v, self.d = float(v), d
-
-
-def _val(a):
-    return a.v if isinstance(a, PyDual) else a
-
-
-def _lift(fn, dfn):
-    """A unary op from its value and derivative functions."""
-    def op(a):
-        if isinstance(a, PyDual):
-            return PyDual(fn(a.v), dfn(a.v) * a.d)
-        return fn(a)
-    return op
-
-
-def _binary(fn, da, db):
-    """A binary op from its value and partial derivatives."""
-    def op(a, b):
-        if isinstance(a, PyDual) or isinstance(b, PyDual):
-            av, bv = _val(a), _val(b)
-            d = 0.0
-            if isinstance(a, PyDual):
-                d = d + da(av, bv) * a.d
-            if isinstance(b, PyDual):
-                d = d + db(av, bv) * b.d
-            return PyDual(fn(av, bv), d)
-        return fn(a, b)
-    return op
-
 
 def _sigmoid(v):
     return 1.0 / (1.0 + math.exp(-v))
@@ -145,84 +110,109 @@ def _sqrt(v):
     return math.sqrt(v) if v >= 0 else math.nan
 
 
-def _powc(a, c):
+def _pow(a, c):
     try:
         return math.pow(a, c)
     except (ValueError, ZeroDivisionError):
         return math.nan if a < 0 else math.inf
 
 
-def _sel(c, a, b):
-    return a if c else b
-
-
-_ZERO = lambda v: 0.0  # noqa: E731
-
 _EVAL = {
-    "add": _binary(operator.add, lambda a, b: 1.0, lambda a, b: 1.0),
-    "sub": _binary(operator.sub, lambda a, b: 1.0, lambda a, b: -1.0),
-    "mul": _binary(operator.mul, lambda a, b: b, lambda a, b: a),
-    "div": _binary(_div, lambda a, b: _div(1.0, b),
-                   lambda a, b: _div(-a, b * b)),
-    "neg": _lift(operator.neg, lambda v: -1.0),
-    "sqrt": _lift(_sqrt, lambda v: _div(0.5, _sqrt(v))),
-    "exp": _lift(math.exp, math.exp),
-    "log": _lift(_log, lambda v: _div(1.0, v)),
-    "expm1": _lift(math.expm1, math.exp),
-    "log1p": _lift(math.log1p, lambda v: _div(1.0, 1.0 + v)),
-    "sin": _lift(math.sin, math.cos),
-    "cos": _lift(math.cos, lambda v: -math.sin(v)),
-    "tanh": _lift(math.tanh, lambda v: 1.0 - math.tanh(v) ** 2),
-    "sigmoid": _lift(_sigmoid, lambda v: _sigmoid(v) * (1.0 - _sigmoid(v))),
-    "abs": _lift(abs, _sign),
-    "sign": _lift(_sign, _ZERO),
-    "floor": _lift(lambda v: float(math.floor(v)), _ZERO),
-    "ceil": _lift(lambda v: float(math.ceil(v)), _ZERO),
-    "round": _lift(lambda v: float(round(v)), _ZERO),
-    "powc": _binary(_powc, lambda a, c: c * _powc(a, c - 1.0),
-                    lambda a, c: 0.0),
-    "powt": _binary(_powc, lambda a, b: b * _powc(a, b - 1.0),
-                    lambda a, b: _powc(a, b) * _log(a)),
-    "atan2": _binary(math.atan2, lambda y, x: _div(x, x * x + y * y),
-                     lambda y, x: _div(-y, x * x + y * y)),
-    "rem": _binary(_rem, lambda a, b: 1.0,
-                   lambda a, b: -float(math.floor(a / b))),
-    "fmod": _binary(math.fmod, lambda a, b: 1.0,
-                    lambda a, b: -float(math.trunc(a / b))),
-    "lt": lambda a, b: _val(a) < _val(b),
-    "le": lambda a, b: _val(a) <= _val(b),
-    "gt": lambda a, b: _val(a) > _val(b),
-    "ge": lambda a, b: _val(a) >= _val(b),
-    "eq": lambda a, b: _val(a) == _val(b),
-    "ne": lambda a, b: _val(a) != _val(b),
+    "add": operator.add, "sub": operator.sub, "mul": operator.mul,
+    "div": _div, "neg": operator.neg, "sqrt": _sqrt, "exp": math.exp,
+    "log": _log, "expm1": math.expm1, "log1p": math.log1p,
+    "sin": math.sin, "cos": math.cos, "tanh": math.tanh,
+    "sigmoid": _sigmoid, "abs": abs, "sign": _sign,
+    "floor": lambda v: float(math.floor(v)),
+    "ceil": lambda v: float(math.ceil(v)),
+    "round": lambda v: float(round(v)),
+    "trunc": lambda v: float(math.trunc(v)),
+    "powc": _pow, "powt": _pow, "atan2": math.atan2, "rem": _rem,
+    "fmod": math.fmod,
+    "lt": operator.lt, "le": operator.le, "gt": operator.gt,
+    "ge": operator.ge, "eq": operator.eq, "ne": operator.ne,
     "and": lambda a, b: bool(a) and bool(b),
     "or": lambda a, b: bool(a) or bool(b),
     "xor": lambda a, b: bool(a) != bool(b),
     "not": lambda a: not a,
-    "isfinite": lambda a: math.isfinite(_val(a)),
+    "isfinite": math.isfinite,
     "tofloat": lambda a: 1.0 if a else 0.0,
-    "tobool": lambda a: _val(a) != 0.0,
-    "sel": _sel,
+    "tobool": lambda a: a != 0.0,
+    "sel": lambda c, a, b: a if c else b,
 }
 
-# the C++ spelling of each instruction (csrc/dual.cuh); {0}, {1}, {2} are
-# the operands
+
+# the C++ spelling of each instruction (csrc/callback_ops.cuh); {0}, {1},
+# {2} are the operands
 _CPP = {
     "add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
     "div": "({0} / {1})", "neg": "(-{0})",
-    "lt": "(m_val({0}) < m_val({1}))", "le": "(m_val({0}) <= m_val({1}))",
-    "gt": "(m_val({0}) > m_val({1}))", "ge": "(m_val({0}) >= m_val({1}))",
-    "eq": "(m_val({0}) == m_val({1}))", "ne": "(m_val({0}) != m_val({1}))",
+    "lt": "({0} < {1})", "le": "({0} <= {1})", "gt": "({0} > {1})",
+    "ge": "({0} >= {1})", "eq": "({0} == {1})", "ne": "({0} != {1})",
     "and": "({0} && {1})", "or": "({0} || {1})", "xor": "({0} != {1})",
-    "not": "(!{0})", "isfinite": "isfinite(m_val({0}))",
-    "tofloat": "({0} ? 1.0f : 0.0f)", "tobool": "(m_val({0}) != 0.0f)",
-    "sel": "m_sel({0}, {1}, {2})",
+    "not": "(!{0})", "isfinite": "isfinite({0})",
+    "tofloat": "({0} ? 1.0f : 0.0f)", "tobool": "({0} != 0.0f)",
+    "sel": "({0} ? {1} : {2})",
 }
 for _name in ("sqrt", "exp", "log", "expm1", "log1p", "sin", "cos", "tanh",
-              "sigmoid", "abs", "sign", "floor", "ceil", "round"):
+              "sigmoid", "abs", "sign", "floor", "ceil", "round", "trunc"):
     _CPP[_name] = f"m_{_name}({{0}})"
 for _name in ("powc", "powt", "atan2", "rem", "fmod"):
     _CPP[_name] = f"m_{_name}({{0}}, {{1}})"
+
+#: instructions whose value is locally constant in every input (a
+#: comparison, a rounding, a logical value): no tangent
+_FLAT = frozenset(["lt", "le", "gt", "ge", "eq", "ne", "and", "or", "xor",
+                   "not", "isfinite", "tofloat", "tobool", "sign", "floor",
+                   "ceil", "round", "trunc"])
+
+
+def _partials(op: str, a: list, v, emit) -> list:
+    """The partial derivative of instruction ``op`` at operands ``a`` (its
+    value ``v``) in each operand, as callables that emit it (None for an
+    operand the value does not depend on): ``jax.jacfwd``'s rules."""
+    one = Lit(1.0)
+    if op == "mul":
+        return [lambda: a[1], lambda: a[0]]
+    if op == "div":
+        return [lambda: emit("div", one, a[1]),
+                lambda: emit("neg", emit("div", a[0],
+                                         emit("mul", a[1], a[1])))]
+    unary = {
+        "sqrt": lambda: emit("div", Lit(0.5), v),
+        "exp": lambda: v,
+        "log": lambda: emit("div", one, a[0]),
+        "expm1": lambda: emit("exp", a[0]),
+        "log1p": lambda: emit("div", one, emit("add", one, a[0])),
+        "sin": lambda: emit("cos", a[0]),
+        "cos": lambda: emit("neg", emit("sin", a[0])),
+        "tanh": lambda: emit("sub", one, emit("mul", v, v)),
+        "sigmoid": lambda: emit("mul", v, emit("sub", one, v)),
+        "abs": lambda: emit("sign", a[0]),
+    }
+    if op in unary:
+        return [unary[op]]
+    if op in ("powc", "powt"):
+        d0 = lambda: emit("mul", a[1], emit("powc", a[0],  # noqa: E731
+                                            emit("sub", a[1], one)))
+        if op == "powc":  # a constant exponent
+            return [d0, lambda: None]
+        return [d0, lambda: emit("mul", v, emit("log", a[0]))]
+    if op == "atan2":
+        den = []
+
+        def d(k):
+            if not den:
+                den.append(emit("add", emit("mul", a[0], a[0]),
+                                emit("mul", a[1], a[1])))
+            q = emit("div", a[1 - k], den[0])
+            return q if k == 0 else emit("neg", q)
+        return [lambda: d(0), lambda: d(1)]
+    if op in ("rem", "fmod"):
+        rnd = "floor" if op == "rem" else "trunc"
+        return [lambda: one, lambda: emit("neg", emit(rnd, emit(
+            "div", a[0], a[1])))]
+    raise CodegenError(f"no derivative rule for {op}")  # pragma: no cover
 
 
 def _flit(v) -> str:
@@ -238,6 +228,10 @@ def _flit(v) -> str:
     return f"{f!r}f"
 
 
+def _is(r, v) -> bool:
+    return isinstance(r, Lit) and not isinstance(r.v, bool) and r.v == v
+
+
 # ---------------------------------------------------------------------------
 # The program
 # ---------------------------------------------------------------------------
@@ -246,11 +240,12 @@ def _flit(v) -> str:
 class Program:
     """A callback lowered to scalar instructions.
 
-    ``inputs``: (shape, kind) per argument, kind ``"S"`` for an argument
-    of the template type and ``"f"`` for a float one; ``consts``: the
-    hoisted constant tensors in buffer order; ``instrs``: ``(op, args)``,
-    instruction ``i`` defining ``Var(i)``; ``out``: the output's scalar
-    references (row-major) and ``out_shape`` its shape."""
+    ``inputs``: (shape, kind) per argument, kind ``"S"`` for the state
+    argument, the one :meth:`jacobian` differentiates in, and ``"f"`` for
+    the others; ``consts``: the hoisted constant tensors in buffer order;
+    ``instrs``: ``(op, args)``, instruction ``i`` defining ``Var(i)``;
+    ``out``: the output's scalar references (row-major) and ``out_shape``
+    its shape."""
 
     def __init__(self, name: str, inputs, consts, instrs, out, out_shape):
         self.name = name
@@ -273,8 +268,8 @@ class Program:
 
     # -- evaluation in Python ------------------------------------------
     def evaluate(self, inputs: Sequence[Sequence], consts: Sequence) -> list:
-        """Run the program on flat per-input lists of floats or
-        :class:`PyDual` numbers and a flat constants list."""
+        """Run the program on flat per-input lists of floats and a flat
+        constants list."""
         vals: list = []
 
         def get(r):
@@ -292,23 +287,92 @@ class Program:
 
     def value_and_jacobian(self, *args: torch.Tensor, wrt: int = 0):
         """The program's output at ``args`` and its Jacobian in argument
-        ``wrt``, evaluated in Python in float64 (for the tests)."""
+        ``wrt``: :meth:`jacobian`'s program evaluated in Python in float64
+        (for the tests)."""
         flat = [a.detach().double().reshape(-1).tolist() for a in args]
-        n = len(flat[wrt])
-        flat[wrt] = [PyDual(v, np.eye(n)[i]) for i, v in enumerate(flat[wrt])]
+        n, m = len(flat[wrt]), len(self.out)
         consts = [v for c in self.consts
                   for v in c.detach().double().reshape(-1).tolist()]
-        out = self.evaluate(flat, consts)
-        val = torch.tensor([float(_val(o)) for o in out], dtype=torch.float64)
-        jac = torch.tensor(np.stack([o.d if isinstance(o, PyDual)
-                                     else np.zeros(n) for o in out]),
-                           dtype=torch.float64)
+        out = [float(o) for o in self.jacobian(wrt).evaluate(flat, consts)]
+        val = torch.tensor(out[:m], dtype=torch.float64)
+        jac = torch.tensor(out[m:], dtype=torch.float64)
         return val.reshape(self.out_shape), jac.reshape(*self.out_shape, n)
+
+    # -- symbolic forward mode -----------------------------------------
+    def jacobian(self, wrt: Optional[int] = None,
+                 name: Optional[str] = None) -> "Program":
+        """A program that computes this one's output and then its
+        Jacobian in input ``wrt`` (default: the ``"S"`` input), row-major:
+        ``[f (m), df/dx (m x n)]``.  The tangents are built symbolically,
+        one instruction at a time, keeping only the entries that are not
+        structurally zero and dropping products by 1: a Jacobian entry
+        of an affine term is the constant itself, no instruction."""
+        if wrt is None:
+            wrt = next((k for k, (_, kind) in enumerate(self.inputs)
+                        if kind == "S"), 0)
+        n = int(np.prod(self.inputs[wrt][0], dtype=np.int64))
+        L = _Lowering()
+        new: list = []   # old Var index -> the new reference
+        tan: list = []   # old Var index -> {column: reference}
+
+        def ref(r):
+            return new[r.i] if isinstance(r, Var) else r
+
+        def tangent(r) -> dict:
+            if isinstance(r, Var):
+                return tan[r.i]
+            if isinstance(r, In) and r.k == wrt:
+                return {r.i: Lit(1.0)}
+            return {}
+
+        def mul(p, t):
+            return t if _is(p, 1.0) else p if _is(t, 1.0) else L.emit(
+                "mul", p, t)
+
+        def add(out, j, t, sign=1):
+            if j in out:
+                out[j] = L.emit("add" if sign > 0 else "sub", out[j], t)
+            elif sign > 0:
+                out[j] = t
+            else:
+                out[j] = Lit(-t.v) if isinstance(t, Lit) else L.emit("neg", t)
+
+        for op, args in self.instrs:
+            a = [ref(x) for x in args]
+            v = L.emit(op, *a)
+            new.append(v)
+            ts = [tangent(x) for x in args]
+            out: dict = {}
+            if not any(ts) or op in _FLAT:
+                pass
+            elif op in ("add", "sub", "neg"):
+                signs = {"add": (1, 1), "sub": (1, -1), "neg": (-1,)}[op]
+                for tk, sign in zip(ts, signs):
+                    for j, t in tk.items():
+                        add(out, j, t, sign)
+            elif op == "sel":
+                for j in sorted(set(ts[1]) | set(ts[2])):
+                    out[j] = L.emit("sel", a[0], ts[1].get(j, Lit(0.0)),
+                                    ts[2].get(j, Lit(0.0)))
+            else:
+                parts = _partials(op, a, v, L.emit)
+                for tk, part in zip(ts, parts):
+                    p = part() if tk else None
+                    for j, t in (tk.items() if p is not None else ()):
+                        add(out, j, mul(p, t))
+            tan.append(out)
+        vals = [ref(r) for r in self.out]
+        jac = [tangent(r).get(j, Lit(0.0)) for r in self.out
+               for j in range(n)]
+        m = len(vals)
+        return Program(name or self.name, self.inputs, self.consts,
+                       L.instrs, vals + jac, (m + m * n,))
 
     # -- C++ -----------------------------------------------------------
     def cpp(self, const_base: int = 0) -> str:
-        """The program as a ``__device__`` function template; its
-        constants start at ``c[const_base]``."""
+        """The program as a ``__device__`` function over floats; its
+        constants start at ``c[const_base]``.  A sine and a cosine of the
+        same operand print as one ``sincosf``."""
         def ref(r):
             if isinstance(r, Var):
                 return f"v{r.i}"
@@ -318,19 +382,58 @@ class Program:
                 return f"c[{const_base + r.i}]"
             return _flit(r.v)
 
-        params = [f"const {'S' if kind == 'S' else 'float'}* __restrict__ "
-                  f"in{k}" for k, (_, kind) in enumerate(self.inputs)]
-        lines = ["template <class S>",
-                 f"__device__ __forceinline__ void {self.name}("
-                 + ", ".join(params + ["const float* __restrict__ c",
-                                       "S* __restrict__ out"]) + ") {"]
+        pair: dict = {}    # first of a sin/cos pair -> (sin index, cos)
+        skip: set = set()
+        seen: dict = {}
         for i, (op, args) in enumerate(self.instrs):
-            lines.append(f"  const auto v{i} = "
-                         + _CPP[op].format(*[ref(a) for a in args]) + ";")
+            if op not in ("sin", "cos"):
+                continue
+            other = ("cos" if op == "sin" else "sin", args[0])
+            if other in seen:
+                j = seen.pop(other)
+                pair[j] = (j, i) if op == "cos" else (i, j)
+                skip.add(i)
+            else:
+                seen.setdefault((op, args[0]), i)
+        params = [f"const float* __restrict__ in{k}"
+                  for k in range(len(self.inputs))]
+        lines = [f"__device__ __forceinline__ void {self.name}("
+                 + ", ".join(params + ["const float* __restrict__ c",
+                                       "float* __restrict__ out"]) + ") {"]
+        for i, (op, args) in enumerate(self.instrs):
+            if i in pair:
+                s, c = pair[i]
+                lines.append(f"  float v{s}, v{c};")
+                lines.append(f"  m_sincos({ref(args[0])}, &v{s}, &v{c});")
+            elif i not in skip:
+                lines.append(f"  const auto v{i} = "
+                             + _CPP[op].format(*[ref(a) for a in args])
+                             + ";")
         for i, r in enumerate(self.out):
-            lines.append(f"  out[{i}] = S({ref(r)});")
+            lines.append(f"  out[{i}] = (float)({ref(r)});")
         lines.append("}")
         return "\n".join(lines)
+
+
+def concat(name: str, progs: Sequence[Program]) -> Program:
+    """One program computing the outputs of ``progs`` (callbacks of the
+    same inputs) one after another, flat: the constants and instructions
+    of each follow the previous ones'."""
+    instrs, out, consts = [], [], []
+    vbase = cbase = 0
+
+    def shift(r):
+        return (Var(r.i + vbase) if isinstance(r, Var) else
+                Const(r.i + cbase) if isinstance(r, Const) else r)
+
+    for p in progs:
+        instrs += [(op, tuple(shift(a) for a in args))
+                   for op, args in p.instrs]
+        out += [shift(r) for r in p.out]
+        consts += list(p.consts)
+        vbase += len(p.instrs)
+        cbase += p.n_consts
+    return Program(name, progs[0].inputs, consts, instrs, out, (len(out),))
 
 
 # ---------------------------------------------------------------------------

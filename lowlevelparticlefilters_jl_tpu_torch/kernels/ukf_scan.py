@@ -363,13 +363,12 @@ class Compiled:
                  "kernels/ukf_scan.py",
                  f"#define LLPF_{self.kind} 1",
                  f"#define LLPF_NX {self.nx}", f"#define LLPF_NY {self.ny}",
-                 f"#define LLPF_NU {self.nu}"]
-        for name, switch in (("cb_fjac", "USER_AJAC"), ("cb_gjac",
-                             "USER_CJAC"), ("cb_inn", "HOOK_INN"),
-                             ("cb_mean", "HOOK_MEAN"),
+                 f"#define LLPF_NU {self.nu}",
+                 f"#define LLPF_NC {sum(p.n_consts for _, p in self.progs)}"]
+        for name, switch in (("cb_inn", "HOOK_INN"), ("cb_mean", "HOOK_MEAN"),
                              ("cb_smean", "HOOK_SMEAN")):
             lines.append(f"#define LLPF_{switch} {int(name in names)}")
-        lines.append('#include "dual.cuh"')
+        lines.append('#include "callback_ops.cuh"')
         base = 0
         for _, prog in self.progs:
             lines.append(prog.cpp(base))
@@ -425,25 +424,31 @@ def _lower_all(specs) -> Optional[list]:
 
 
 def _ekf_programs(ekf, nu: int, device) -> Optional[Compiled]:
-    """Kernel I's lowered callbacks (f, g and the user Jacobians), traced
-    once per filter, input width and device; None when not admitted."""
+    """Kernel I's callbacks as value-and-Jacobian programs ``cb_fvj`` and
+    ``cb_gvj``: each callback with the user's Jacobian, or with its own
+    Jacobian in x differentiated at code generation; traced once per
+    filter, input width and device; None when not admitted."""
     def make():
         t0 = time.perf_counter()
         mm, p, nx, ny = ekf.measurement_model, ekf.p, ekf.nx, ekf.ny
         ex = _examples(ekf, nu, device)
-        specs = [("cb_f", lambda x, u, t: ekf.dynamics(x, u, p, t), ex,
-                  "Sff", (nx,)),
-                 ("cb_g", lambda x, u, t: mm.measurement(x, u, p, t), ex,
-                  "Sff", (ny,))]
-        if ekf.Ajac is not None:
-            specs.append(("cb_fjac", lambda x, u, t: ekf.Ajac(x, u, p, t),
-                          ex, "fff", (nx, nx)))
-        if mm.Cjac is not None:
-            specs.append(("cb_gjac", lambda x, u, t: mm.Cjac(x, u, p, t),
-                          ex, "fff", (ny, nx)))
-        progs = _lower_all(specs)
-        return None if progs is None else Compiled(
-            "EKF", nx, ny, nu, progs, time.perf_counter() - t0)
+        progs = []
+
+        def bound(fn):
+            return lambda x, u, t: fn(x, u, p, t)
+
+        for name, fn, jac, m in (("cb_fvj", ekf.dynamics, ekf.Ajac, nx),
+                                 ("cb_gvj", mm.measurement, mm.Cjac, ny)):
+            specs = [(name, bound(fn), ex, "Sff", (m,))]
+            if jac is not None:
+                specs.append((name, bound(jac), ex, "Sff", (m, nx)))
+            lowered = _lower_all(specs)
+            if lowered is None:
+                return None
+            value = lowered[0][1]
+            progs.append((name, value.jacobian(name=name) if jac is None
+                          else cg.concat(name, [value, lowered[1][1]])))
+        return Compiled("EKF", nx, ny, nu, progs, time.perf_counter() - t0)
     return _cached(ekf, ("EKF", nu, str(device)), make)
 
 

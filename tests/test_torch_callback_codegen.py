@@ -4,7 +4,8 @@
 The callbacks of the three main paths — the quadtank dynamics, the
 nonlinear ``A x + 0.01 sin x``, the CV model with ``B u`` — and the
 angle-wrap hooks are lowered to the scalar program the kernels compile;
-the program, evaluated in Python on floats and dual numbers, must give
+the program and its value-and-Jacobian program (differentiated at code
+generation, the form kernel I compiles), evaluated in Python, must give
 the callback's value and its ``torch.func.jacfwd`` Jacobian (float64,
 1e-6).  The C++ the program prints is compiled and run only on the card
 (tests/test_torch_cuda.py)."""
@@ -59,8 +60,23 @@ def test_lowered_callback_matches_torch_and_jacfwd(case):
     torch.testing.assert_close(
         jac, torch.func.jacfwd(fn)(*args), rtol=1e-6, atol=1e-6)
     src = prog.cpp()
-    assert src.startswith("template <class S>") and "void cb_f(" in src
+    assert src.startswith("__device__ __forceinline__ void cb_f(")
     assert src.count("out[") == nx
+    # the value-and-Jacobian program that kernel I compiles: value, then
+    # the Jacobian row-major; a sine and a cosine of one operand print as
+    # one sincosf
+    vj = prog.jacobian(name="cb_fvj")
+    flat = vj.evaluate([a.reshape(-1).tolist() for a in args],
+                       [v for c in prog.consts
+                        for v in c.double().reshape(-1).tolist()])
+    torch.testing.assert_close(torch.tensor(flat, dtype=F64), torch.cat(
+        [fn(*args), torch.func.jacfwd(fn)(*args).reshape(-1)]),
+        rtol=1e-6, atol=1e-6)
+    cpp = vj.cpp()
+    assert cpp.count("out[") == nx + nx * nx
+    if case == "nonlinear_cv":
+        assert cpp.count("m_sincos(") == nx
+        assert "m_sin(" not in cpp and "m_cos(" not in cpp
 
 
 AFFINE = {
@@ -141,3 +157,55 @@ def test_op_outside_the_admitted_list_routes_sequential():
     assert "vector_norm" in str(pytest.raises(
         cg.CodegenError, cg.lower, lambda x: torch.linalg.vector_norm(x),
         (torch.zeros(3),), "S", "cb").value)
+
+
+def test_ekf_source_keeps_constants_out_of_the_step_loop():
+    """Kernel I's generated source for the benchmark's EKF (``A x + 0.01
+    sin x``, ``C x``): the value-and-Jacobian callbacks read the 24
+    constants from the copy the kernel loads into registers before the
+    step loop (``LLPF_NC`` <= 64), never from the device pointer ``c``
+    inside it; the Jacobian of ``C x`` costs no instruction, and the four
+    sine/cosine pairs print as ``sincosf``."""
+    import re
+    from pathlib import Path
+
+    A32, C32 = A.float(), torch.eye(2, 4)
+    ekf = llpt.make_ekf(lambda x, u, p, t: A32 @ x + 0.01 * torch.sin(x),
+                        lambda x, u, p, t: C32 @ x, 0.1 * torch.eye(4),
+                        torch.eye(2), ny=2, nu=0)
+    comp = ukf_scan._ekf_programs(ekf, 0, torch.device("cpu"))
+    src = comp.source()
+    assert [n for n, _ in comp.progs] == ["cb_fvj", "cb_gvj"]
+    assert "#define LLPF_NC 24\n" in src and src.count("m_sincos(") == 4
+    g = cg.lower(lambda x, u, t: C32 @ x, (torch.zeros(4), torch.zeros(0),
+                                           torch.tensor(0.0)), "Sff", "g")
+    assert len(comp.progs[1][1].instrs) == len(g.instrs)
+    cuh = (Path(ukf_scan.__file__).parent.parent / "csrc"
+           / "ukf_scan.cuh").read_text()
+    kernel = cuh[cuh.index("ekf_scan_kernel("):cuh.index("int launch_ekf(")]
+    loop = kernel[kernel.index("for (int s = 0; s < tc; ++s)"):]
+    assert "cb_gvj(x, u, &tk, cs, gv)" in loop
+    assert "cb_fvj(x, u, &tk, cs, fv)" in loop
+    assert re.search(r"\bc\[", loop) is None
+    assert re.search(r"cs\[k\] = c\[k\]", kernel[:kernel.index(
+        "for (int s = 0; s < tc; ++s)")])
+
+
+def test_user_jacobian_program_concatenates():
+    """With the user's Jacobian, kernel I's ``cb_fvj`` is the dynamics and
+    the Jacobian callback one after another, their constants offset: its
+    outputs are ``[f(x), Ajac(x)]``."""
+    A32 = A.float()
+    ekf = llpt.make_ekf(
+        lambda x, u, p, t: A32 @ x + 0.01 * torch.sin(x),
+        lambda x, u, p, t: x[:2], 0.1 * torch.eye(4), torch.eye(2),
+        ny=2, nu=0, Ajac=lambda x, u, p, t: A32 + 0.01 * torch.diag(
+            torch.cos(x)))
+    (_, fvj), _ = ukf_scan._ekf_programs(ekf, 0, torch.device("cpu")).progs
+    x = torch.tensor([0.3, -1.2, 2.0, 0.7])
+    got = fvj.evaluate([x.tolist(), [], [0.0]], fvj.const_buffer().tolist())
+    want = torch.cat([A32 @ x + 0.01 * torch.sin(x),
+                      (A32 + 0.01 * torch.diag(torch.cos(x))).reshape(-1)])
+    torch.testing.assert_close(torch.tensor(got, dtype=torch.float32), want,
+                               rtol=1e-6, atol=1e-6)
+    assert fvj.n_consts == 32 and "m_sincos(" in fvj.cpp()

@@ -53,6 +53,27 @@ def test_normal_and_add_gaussian_noise(cuda_device):
     assert float((out - ref).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 200_001])
+def test_normal_tails_and_offset_view(cuda_device, n):
+    """Kernel C's whole groups of four and its ragged tail, into a fresh
+    tensor through the wrapper and, through the C entry, into a view at a
+    4-byte offset: the twin's stream within 1e-6; the wrapper's launch
+    counted."""
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import _lib
+
+    zp = noise.normal_plain(9, n, tag=noise.TAG_INIT, device=cuda_device)
+    before = noise.NORMAL.launches
+    z = noise.normal(9, (n,), tag=noise.TAG_INIT, device=cuda_device)
+    assert noise.NORMAL.launches == before + 1 and z.shape == (n,)
+    buf = torch.full((n + 1,), 7.0, device=cuda_device)
+    _lib.check(_lib.library().lib.llpf_normal(
+        buf.data_ptr() + 4, n, 9, noise.TAG_INIT, 0, _lib.stream_ptr(buf)),
+        "normal")
+    assert float(buf[0]) == 7.0
+    for got in (z, buf[1:]):
+        assert float((got - zp).abs().max()) <= 1e-6
+
+
 @pytest.mark.parametrize("nx", [2, 4])
 def test_systematic_gather_bitwise(cuda_device, nx):
     g = torch.Generator().manual_seed(nx)
@@ -315,16 +336,105 @@ def test_akf_kernel_matches_twin(cuda_device, T):
             _close_solution(got, ukf_scan.akf_scan_plain(*args, traj=traj))
 
 
-@pytest.mark.parametrize("user_jac", [False, True])
-def test_ekf_kernel_matches_twin(cuda_device, user_jac):
-    ekf = _cv_filters(cuda_device, nonlinear=True, user_jac=user_jac)
-    ys = torch.randn(300, 2, generator=torch.Generator().manual_seed(3)
-                     ).to(cuda_device)
+def _nonlinear_input_ekf(dev):
+    """``A x + B u + 0.01 sin x``: kernel I with inputs staged."""
+    A, Bm, C = (_t32(M, dev) for M in (CV_A, CV_B, CV_C))
+    return llpt.make_ekf(
+        lambda x, u, p, t: A @ x + Bm @ u + 0.01 * torch.sin(x),
+        lambda x, u, p, t: C @ x, 0.1 * torch.eye(4, device=dev),
+        torch.eye(2, device=dev), nu=2, ny=2)
+
+
+@pytest.mark.parametrize("T", [0, 1, 127, 128, 129, 300, 5000])
+@pytest.mark.parametrize("case", ["forward", "user_jac", "input"])
+def test_ekf_kernel_matches_twin(cuda_device, case, T):
+    """Kernel I against its twin, ll and solution, with the Jacobians
+    differentiated at code generation, the user's, and with inputs; T
+    crosses the staging and ring chunks (128 steps, 64 with the
+    trajectory)."""
+    ekf = (_nonlinear_input_ekf(cuda_device) if case == "input" else
+           _cv_filters(cuda_device, nonlinear=True,
+                       user_jac=case == "user_jac"))
+    g = torch.Generator().manual_seed(T)
+    ys = torch.randn(T, 2, generator=g).to(cuda_device)
+    us = (0.3 * torch.randn(T, 2, generator=g).to(cuda_device)
+          if case == "input" else None)
     for traj in (False, True):
         before = ukf_scan.EKF_SCAN.launches
-        got = ukf_scan.ekf_scan(ekf, ys, traj=traj)
+        got = ukf_scan.ekf_scan(ekf, ys, us, traj=traj)
         assert ukf_scan.EKF_SCAN.launches == before + 1
-        _close_solution(got, ukf_scan.ekf_scan_plain(ekf, ys, traj=traj))
+        if T == 0:  # the twin stacks no steps: ll 0 and empty fields
+            assert float(got[0]) == 0.0
+            assert got[1] is None or all(o.shape[0] == 0 for o in got[1])
+            continue
+        _close_solution(got, ukf_scan.ekf_scan_plain(ekf, ys, us, traj=traj))
+
+
+def _sized_ekf(nx, ny, dev):
+    """A nonlinear EKF of any size: ``A x + 0.05 tanh x``, ``C x + 0.1
+    sin(C x)``."""
+    g = torch.Generator().manual_seed(10 * nx + ny)
+    A = (0.9 * torch.eye(nx) + 0.05 * torch.randn(nx, nx, generator=g)).to(
+        dev)
+    C = torch.randn(ny, nx, generator=g).to(dev)
+    return llpt.make_ekf(
+        lambda x, u, p, t: A @ x + 0.05 * torch.tanh(x),
+        lambda x, u, p, t: C @ x + 0.1 * torch.sin(C @ x),
+        0.1 * torch.eye(nx, device=dev), torch.eye(ny, device=dev), ny=ny,
+        nu=0)
+
+
+@pytest.mark.parametrize("nx,ny", [(1, 1), (2, 3), (8, 8)])
+def test_ekf_kernel_other_sizes(cuda_device, nx, ny):
+    """Kernel I's ring and chunk length follow the sizes (at nx = ny = 8
+    the trajectory ring holds 16 steps a chunk): ll and solution against
+    the twin at T = 300."""
+    ekf = _sized_ekf(nx, ny, cuda_device)
+    ys = torch.randn(300, ny, generator=torch.Generator().manual_seed(nx)
+                     ).to(cuda_device)
+    for traj in (False, True):
+        _close_solution(ukf_scan.ekf_scan(ekf, ys, traj=traj),
+                        ukf_scan.ekf_scan_plain(ekf, ys, traj=traj))
+
+
+@pytest.mark.parametrize("rows", [300, 600])
+def test_ekf_kernel_many_constants(cuda_device, rows):
+    """Callbacks holding thousands of constants at nx = ny = 8 go to
+    shared memory while the smallest chunk leaves room (4928 of them
+    beside a trajectory ring cut to 8 steps a chunk; 9728 without the
+    trajectory), else stay in device memory (9728 with the trajectory):
+    ll and solution against the twin at T = 300."""
+    g = torch.Generator().manual_seed(rows)
+    A = 0.9 * torch.eye(8) + 0.05 * torch.randn(8, 8, generator=g)
+    C, tf, tg = (torch.randn(*s, generator=g).to(cuda_device)
+                 for s in ((8, 8), (rows, 8), (rows, 8)))
+    A = A.to(cuda_device)
+    ekf = llpt.make_ekf(
+        lambda x, u, p, t: A @ x + 0.05 * torch.tanh(x) + 1e-3 * tf.mean(0),
+        lambda x, u, p, t: C @ x + 0.1 * torch.sin(C @ x) + 1e-3 * tg.mean(0),
+        0.1 * torch.eye(8, device=cuda_device),
+        torch.eye(8, device=cuda_device), ny=8, nu=0)
+    comp = ukf_scan._ekf_programs(ekf, 0, cuda_device)
+    assert sum(p.n_consts for _, p in comp.progs) == 128 + 16 * rows
+    ys = torch.randn(300, 8, generator=g).to(cuda_device)
+    for traj in (False, True):
+        _close_solution(ukf_scan.ekf_scan(ekf, ys, traj=traj),
+                        ukf_scan.ekf_scan_plain(ekf, ys, traj=traj))
+
+
+def test_ekf_step_loop_reads_no_device_memory(cuda_device):
+    """The compiled step loop of kernel I loads nothing from device memory:
+    the callbacks' constants sit in registers (``cuobjdump -sass`` through
+    ``kernels/sass.py``)."""
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import sass
+
+    for user_jac in (False, True):
+        ekf = _cv_filters(cuda_device, nonlinear=True, user_jac=user_jac)
+        lib = ukf_scan._ekf_programs(ekf, 0, cuda_device).library()
+        text = sass.disassemble(lib._name)
+        for traj in (False, True):
+            loop = sass.step_loop(text, "ekf_scan_kernel", traj)
+            assert loop.get("LDG", 0) == 0, loop
 
 
 @pytest.mark.parametrize("case", ["quadtank", "cv", "angle"])
