@@ -44,8 +44,11 @@ exits non-zero without its result lines):
    blocks, the hot path with no load from device memory, the chain bound).
 10. kernel G on the quadtank model (bench.py:695-712) under "auto" and
    the CV UKF with ``force_kernel=True``, T = 5e4, and an angle-wrap
-   innovation hook (bench.py:211-233); G against its twin at T = 2000,
-   the ll against float64 CPU sequential at T = 5000.
+   innovation hook (bench.py:211-233); G against its twin at T = 2000
+   (also an 8-state UKF, 17 sigma points, ``nx8_ukf``), the ll against
+   float64 CPU sequential at T = 5000; the SM clock under load and
+   cycles a step; where the toolkit has ``cuobjdump``, G's step loop as
+   phase 9 reads I's (no load from device memory, the chain bound).
    Phases 8-10 print the median of 5 calls, the kernel's CUDA-event time,
    the launches per call and the seconds of tracing and of the callback
    library's build, apart from the calls.
@@ -396,6 +399,18 @@ def cv_ukf(d, dt):
                          _eye(4, 0.1, dt, d), _eye(2, 1.0, dt, d), ny=2, nu=0)
 
 
+def nx8_ukf(d, dt):
+    """An 8-state UKF, 17 sigma points: ``x' = A8 x + 0.01 sin x`` (A8 a
+    damped shift) observed in its first four states."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+
+    A8 = 0.95 * torch.eye(8, dtype=dt, device=d) + 0.05 * torch.roll(
+        torch.eye(8, dtype=dt, device=d), 1, 0)
+    return llpt.make_ukf(lambda x, u, p, t: A8 @ x + 0.01 * torch.sin(x),
+                         lambda x, u, p, t: x[:4], _eye(8, 0.01, dt, d),
+                         _eye(4, 0.1, dt, d), ny=4, nu=0)
+
+
 def whole_scan_phases(dev, kernels, stats, launches, smi):
     """Phases 8-10: the whole-scan kernels H, I and G on their main paths
     (see the module doc); fills ``stats`` and ``launches``."""
@@ -644,19 +659,48 @@ def whole_scan_phases(dev, kernels, stats, launches, smi):
                                ya[:T_TWIN], method="sequential"))
     rel10a = check_ref("G angle hook T=2000", llpt.loglik(ang10, None, yat),
                        ref10a, tol=1e-3)
+    # G at nx = 8 (17 sigma points, the warp layout) against its twin
+    u8k = nx8_ukf(dev, torch.float32)
+    y8k = randn(T_TWIN, 4, 102).to(dev)
+    err10 = max(err10, *(check_twin(
+        f"G nx=8 traj={tr}", ukf_scan.ukf_scan(u8k, y8k, traj=tr),
+        ukf_scan.ukf_scan_plain(u8k, y8k, traj=tr), FIELDS)
+        for tr in (False, True)))
     comp10 = ukf_scan._ukf_programs(q10, 0, dev)
     n_f, n_g = (len(p.instrs) for _, p in comp10.progs[:2])
+    ms10 = cuda_ms(lambda: ukf_scan.ukf_scan(q10, y10), 3)
+    mhz10 = sm_clock_mhz(lambda: ukf_scan.ukf_scan(q10, y10),
+                         max(5, math.ceil(500 / ms10)))
     stats["ukf_scan"] = dict(
         max_abs_err=err10, T=T_SCAN, plain_T=T_TWIN, library_ms=None,
-        ms=cuda_ms(lambda: ukf_scan.ukf_scan(q10, y10), 3),
+        ms=ms10, sm_mhz=mhz10, cycles_a_step=ms10 * 1e3 * mhz10 / T_SCAN,
+        layouts={f"nx={n}": ukf_scan.ukf_layout(n) for n in (2, 4, 8)},
         plain_ms=cuda_ms(lambda: ukf_scan.ukf_scan_plain(q10, y10t), 1),
         # ys; x0, P0, R1, R2; ll
         **bound(4 * (T_SCAN * 2 + 15),
                 T_SCAN * per_step_ops_ukf(2, 2, n_f, n_g)))
+    # G's compiled step loop, as phase 9 reads I's: no load from device
+    # memory in it, and its dependent chain as a bound
+    try:
+        listing10 = sass.disassemble(comp10.library()._name)
+    except RuntimeError as exc:
+        log("G", f"step loop not read: {exc}")
+    else:
+        for traj in (False, True):
+            loop = sass.step_loop(listing10, "ukf_scan_kernel", traj)
+            require(loop.get("LDG", 0) == 0, f"G traj={traj}: no load from "
+                    f"device memory in the step loop {loop}")
+            log("G", f"quadtank step loop traj={traj}: {loop}")
+            if not traj:
+                stats["ukf_scan"].update(
+                    sass_loop=loop, chain_bound_ms=T_SCAN
+                    * loop["chain_cycles"] / (mhz10 * 1e3))
     log("G ukf_scan", f"quadtank T={T_SCAN}: ll {ll10}; CV (forced) "
         f"{ll10cv}; angle hook T=4096 {ll10a}; T={T_REF} rel {rel10:.3g} "
         f"vs f64 sequential, angle hook T={T_TWIN} rel {rel10a:.3g} (1e-3, "
-        f"bench.py:229); launches {path10}; {stats['ukf_scan']}")
+        f"bench.py:229); nx=8 against its twin; launches {path10}; "
+        f"{stats['ukf_scan']['cycles_a_step']:.0f} cycles a step at "
+        f"{mhz10:g} MHz; {stats['ukf_scan']} ({smi})")
     report("G", UKF, lambda: llpt.loglik(q10, None, y10), *ts10)
     log("G", f"CV UKF: tracing {ts10cv[0]} s, build {ts10cv[1]} s; angle "
         f"hook UKF: tracing {ts10a[0]} s, build {ts10a[1]} s")

@@ -5,8 +5,8 @@
 // differentiated at code generation (callback_codegen.Program.jacobian).
 // Every m_* function below is the C++ of one instruction, whose Python
 // evaluation is callback_codegen._EVAL, so the CPU tests hold the
-// semantics that run here.  A sine and a cosine of one operand come from
-// one sincosf (m_sincos).
+// semantics that run here (m_sqrt within an ulp of it).  A sine and a
+// cosine of one operand come from one sincosf (m_sincos).
 #pragma once
 #include <math.h>
 
@@ -16,7 +16,20 @@ __device__ __forceinline__ float m_sigmoid(float a) {
 __device__ __forceinline__ float m_sign(float a) {
   return (float)((a > 0.f) - (a < 0.f));
 }
-__device__ __forceinline__ float m_sqrt(float a) { return sqrtf(a); }
+// sqrt without the branch of sqrtf to its slow path, which cuts a step
+// into basic blocks the compiler schedules one by one (kernel G evaluates
+// the callbacks of its sigma points as interleaved streams): rsqrtf and
+// one Newton step in fused multiply-adds, within an ulp of sqrtf;
+// subnormals scaled by 2^24 first; 0 and +inf by a select; a negative
+// gives NaN through rsqrtf
+__device__ __forceinline__ float m_sqrt(float a) {
+  const bool tiny = a < 1.17549435e-38f;
+  const float as = tiny ? a * 16777216.f : a;
+  const float r = rsqrtf(as);
+  const float s = as * r;
+  const float y = fmaf(0.5f * r, fmaf(-s, s, as), s);
+  return (a == 0.f || a == INFINITY) ? a : tiny ? y * 2.44140625e-4f : y;
+}
 __device__ __forceinline__ float m_exp(float a) { return expf(a); }
 __device__ __forceinline__ float m_log(float a) { return logf(a); }
 __device__ __forceinline__ float m_expm1(float a) { return expm1f(a); }

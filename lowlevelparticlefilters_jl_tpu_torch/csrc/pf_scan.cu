@@ -16,8 +16,8 @@
 //                y_t - (H_t x + d_t) - mu2, or sum_d logpdf_d(y_d - yhat_d)
 //                of the scalar families; a NaN in y_t skips the update
 //   2. normalize: m = max w1, weu = exp(w1 - m), ll_t = m + log sum weu
-//      moments: the mean from per-block partials of sum weu x
-//   3. central second moments of the block's particles about that mean
+//      moments: the mean sum weu x / sum weu
+//   3. central second moments about that mean
 //      trigger:  Neff = 1 / sum we^2 < thresh * N (always when thresh >= 1;
 //                never in segment mode)
 //      resample: wi = floor(we * 2^24 + 0.5) as int32, exact int prefix
@@ -26,30 +26,51 @@
 //      else      w = w1 - ll_t
 //   4. predict:  x' = M_t x + c_t + mu1 + L1 z, z from Philox (seed, t)
 //
-// Bound on the card: synchronisation.  The TPU runs the recursion as one
-// sequential program with the cloud in VMEM; Hopper spreads it over 132
-// SMs and nothing carries across blocks.  So the kernel is persistent and
-// cooperative: a grid sized to be co-resident, each block owning a
-// contiguous particle range, the cloud kept SoA as [nx, N] f32 in global
-// memory (800 KB at N = 1e5, resident in the 50 MB L2), and the phases of
-// a step separated by grid.sync(): two a step, four when it resamples.
-// Grid-wide max and sums go through per-block partials that every block
-// reduces in the same fixed order, so all blocks take the same trigger
-// decision.  The integer prefix sum is exact in any order, so K is
-// monotone and reproducible.  Reads of data written by other blocks use
+// Bound on the card: synchronisation and the issue rate.  The TPU runs the
+// recursion as one sequential program with the cloud in VMEM; Hopper
+// spreads it over 132 SMs and nothing carries across blocks.  So the
+// kernel is persistent and cooperative: a grid sized to be co-resident
+// (blocks of 512 threads, as many an SM as fit), each block
+// owning a contiguous particle range, the cloud kept SoA as [nx, N] f32 in
+// device memory (800 KB at N = 1e5, resident in the 50 MB L2).  A step's
+// particle work (the Philox draw, the predict, the weight) is a few
+// hundred instructions a particle, so at N = 1e5 the SMs' issue rate and
+// the grid-wide syncs set its time (PERF.md: the phases of a step).
+//
+// Design: one grid-wide exchange a step.  As a thread makes its particles'
+// new weights it keeps their max and the sums of exp(w - max), of its
+// square and (moments) of exp(w - max) x, rescaled when the max grows; the
+// block reduces them to one record {m_b, sums relative to m_b} and
+// publishes it; after one grid.sync every block combines the G records
+// in one fixed order, rescaling each by exp(m_b - m) (a block of -inf
+// weights adds nothing), so every block holds the same m, sums, ll_t and
+// trigger decision.  The records are double-buffered by step parity, so
+// the next step's records cannot overwrite a record another block still
+// reads.  The predict of step t and the weight of step t + 1 are one pass
+// over the block's particles.  A step that does not resample takes one
+// grid.sync and one read of the records.
+//
+// Resample: each block quantizes its weights with the global m and S1 and
+// scans them (exact int32) into each particle's exclusive prefix in the
+// block, publishes its total; one grid.sync; every block scans the G
+// totals into its offset P_b; each particle i then knows its slots
+// [K_{i-1}, K_i) (K from P_b and its own prefix, as the twin computes it
+// from the global prefix) and writes its state there (scatter); one more
+// grid.sync, after which every block reads its new cloud: two syncs a
+// resampling step and no search.  The integer prefix is exact in any
+// order, so K is monotone and reproducible.  A heavy particle's copies are written by its own thread,
+// so a step where one particle takes most of the mass is slow, not wrong.
+// Every read of the cloud and of data written by other blocks uses
 // __ldcg (L2, not the incoherent L1).
 //
-// The moments need the grid-wide mean before the central pass, and the mean
-// is known after the second grid.sync of the step, which the normalization
-// needs anyway.  So the central pass runs in phase 3 on each block's own
-// particles (before the resample gather, which reads the cloud and writes
-// the other buffer), with no grid.sync of its own: block 0 reduces its
-// per-block partials in fixed block order after the next step's first
-// grid.sync (after one last grid.sync for the final step), when every
-// block has written them.  Every per-block partial is reduced in one fixed
-// order (a warp a component, lanes strided over the blocks, then a shuffle
-// tree), so each run gives the same moments.  Not the raw moments
-// E[x x^T] - m m^T, which cancel in f32.
+// Moments: the mean comes out of the exchange.  The central second moments
+// need it, so their pass runs after the exchange on each block's own
+// particles with the global weights exp(w1 - m) and publishes its record;
+// block 0 reduces the records in fixed block order after the next step's
+// grid.sync (after one last grid.sync for the final step).  Every sum is
+// taken in one fixed order (a warp's butterfly, then the warps, then the
+// blocks, in order), so two seeded calls give the same bits.  Not the raw
+// moments E[x x^T] - m m^T, which cancel in f32.
 //
 // Scalar measurement densities: each measurement dimension carries a
 // family code and six constants folded on the host in float64
@@ -64,29 +85,33 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <cub/block/block_reduce.cuh>
-#include <cub/block/block_scan.cuh>
-
 #include "philox.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+// a grid of at most kMaxGrid blocks, whose records and totals every
+// block's threads read, kMaxGrid / kThreads each
+constexpr int kMaxGrid = 1024;
 constexpr int kMaxD = 8;
 constexpr int kMaxPairs = kMaxD * (kMaxD + 1) / 2;
 constexpr int kDensC = 6;  // constants per scalar density
+constexpr int kMaxS = 2 * kMaxD * kMaxD + 2 * kMaxD;  // coefficients a step
+static_assert(kMaxS <= kThreads, "a thread a coefficient");
+// an exchange record: m_b, s1_b, s2_b and the moment sums sx_b [nx]
+constexpr int kRec = 3 + kMaxD;
+constexpr unsigned kFull = 0xffffffffu;
+// phases of a step that block 0's thread 0 times when asked (clock64
+// cycles summed over the steps): its record, the exchange's grid.sync,
+// the combine, the moments, the resample's quantized scan, its grid.sync,
+// its gather, the predict and next weight
+constexpr int kPhases = 8;
 
 // family codes of kernels/pf_scan.py::FAMILY
 enum Family { kNormal = 1, kUniform, kLaplace, kStudentT, kBinary, kMixture };
-
-struct MaxOp {
-  __device__ __forceinline__ float operator()(float a, float b) const {
-    return fmaxf(a, b);
-  }
-};
 
 struct PFArgs {
   const float* y;     // [T, ny]
@@ -104,18 +129,16 @@ struct PFArgs {
   float* xa;          // [nx, N] cloud
   float* xb;          // [nx, N] cloud after a resample
   float* w;           // [N] log-weights
-  float* weu;         // [N] unnormalized exp-weights
-  int32_t* kbuf;      // [N] prefix sums, then slot boundaries K
-  float* pmax;        // [grid] per-block partials
-  float* ps1;
-  float* ps2;
-  int32_t* pint;
-  float* pmom;   // [nx + pairs, grid] per-block moment partials
+  int32_t* kbuf;      // [N] the blocks' local prefix sums C_loc
+  float* part;        // [2][kRec][G] exchange records, by step parity
+  float* pcov;        // [2][pairs][G] central-moment records (want_cov)
+  int32_t* ptot;      // [G] the blocks' quantized totals
   float* out;    // [2]: ll, number of resamples
   float* means;  // [T, nx] (moments mode)
   float* covs;   // [T, nx, nx] (moments mode with want_cov)
   float* xfin;   // [N, nx] final cloud (segment mode), or null
   float* wfin;   // [N] final log-weights
+  long long* prof;  // [kPhases] block 0's cycles by phase, or null
   int T, N, nx, ny;
   float cst;        // -ny/2 log 2pi + sum log |diag L2i|
   float thr_n;      // f32(thresh * N)
@@ -127,116 +150,78 @@ struct PFArgs {
   uint64_t seed;
 };
 
-using BlockReduceF = cub::BlockReduce<float, kThreads>;
-using BlockReduceI = cub::BlockReduce<int, kThreads>;
-using BlockScanI = cub::BlockScan<int, kThreads>;
-
-union TempStorage {
-  typename BlockReduceF::TempStorage rf;
-  typename BlockReduceI::TempStorage ri;
-  typename BlockScanI::TempStorage si;
-};
-
-// Grid-wide reductions over the per-block partials: every block reads all
-// of them in the same order and gets the same value.
-__device__ float grid_max(const float* p, TempStorage& tmp, float* bcast) {
-  float v = -INFINITY;
-  for (int k = threadIdx.x; k < (int)gridDim.x; k += kThreads)
-    v = fmaxf(v, __ldcg(p + k));
-  v = BlockReduceF(tmp.rf).Reduce(v, MaxOp());
-  if (threadIdx.x == 0) *bcast = v;
-  __syncthreads();
-  v = *bcast;
-  __syncthreads();
-  return v;
-}
-
-__device__ float grid_sum(const float* p, TempStorage& tmp, float* bcast) {
-  float v = 0.f;
-  for (int k = threadIdx.x; k < (int)gridDim.x; k += kThreads)
-    v += __ldcg(p + k);
-  v = BlockReduceF(tmp.rf).Sum(v);
-  if (threadIdx.x == 0) *bcast = v;
-  __syncthreads();
-  v = *bcast;
-  __syncthreads();
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;  // lane 0 holds the sum
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
 }
 
-// dst[k * stride] = the block's sum of v[k], k < n, in one fixed order
-// (shuffle tree in each warp, then the warps in order).
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// the block's max of v, on every thread (red: kWarps floats)
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red[0];
+#pragma unroll
+  for (int k = 1; k < kWarps; ++k) m = fmaxf(m, red[k]);
+  __syncthreads();
+  return m;
+}
+
+// the block's sums of v[k], k < n, on thread 0, in one fixed order (each
+// warp's butterfly, then the warps in order); red: kWarps * K floats
 template <int K>
-__device__ void block_sums(const float (&v)[K], int n, float* sred,
-                           float* dst, int stride) {
+__device__ __forceinline__ void block_sums0(float (&v)[K], int n,
+                                            float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     if (k < n) {
       const float s = warp_sum(v[k]);
-      if (lane == 0) sred[warp * K + k] = s;
+      if (lane == 0) red[warp * K + k] = s;
     }
   }
   __syncthreads();
-  if ((int)threadIdx.x < n) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += sred[w * K + threadIdx.x];
-    dst[threadIdx.x * stride] = s;
-  }
-  __syncthreads();
-}
-
-// The block's sums of the pair accumulators acc (kMaxD packing, pairs
-// with f < nx used), stored in the compact order of nx: (0,0), (0,1), ...,
-// (0,nx-1), (1,1), ...; dst[k * stride] for compact index k.
-__device__ void block_pair_sums(const float (&acc)[kMaxPairs], int nx,
-                                float* sred, float* dst, int stride) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int d = 0, k = 0; d < kMaxD; ++d) {
-#pragma unroll
-    for (int f = d; f < kMaxD; ++f, ++k) {
-      if (f < nx) {
-        const float s = warp_sum(acc[k]);
-        if (lane == 0) sred[warp * kMaxPairs + k] = s;
+    for (int k = 0; k < K; ++k) {
+      if (k < n) {
+        float s = 0.f;
+        for (int w = 0; w < kWarps; ++w) s += red[w * K + k];
+        v[k] = s;
       }
     }
   }
-  __syncthreads();
-  if ((int)threadIdx.x < kMaxPairs) {
-    int d = 0, r = threadIdx.x;  // (d, f) of packed index threadIdx.x
-    while (r >= kMaxD - d) {
-      r -= kMaxD - d;
-      ++d;
-    }
-    const int f = d + r;
-    if (f < nx) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += sred[w * kMaxPairs + threadIdx.x];
-      dst[(d * nx - d * (d - 1) / 2 + (f - d)) * stride] = s;
-    }
-  }
-  __syncthreads();
 }
 
-// sout[k] = sum over the blocks of the partials p[k * grid + b], k < n, in
-// one fixed order: a warp a component, lanes strided over the blocks.
-__device__ void grid_sums(const float* p, int n, float* sout) {
+// inclusive prefix sum of v over the block's threads in order, and the
+// block's total (red: kWarps ints); exact in int32
+__device__ __forceinline__ int block_scan(int v, int* red, int& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int G = (int)gridDim.x;
-  for (int k = warp; k < n; k += kWarps) {
-    float s = 0.f;
-    for (int b = lane; b < G; b += 32) s += __ldcg(p + (size_t)k * G + b);
-    s = warp_sum(s);
-    if (lane == 0) sout[k] = s;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int n = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v += n;
+  }
+  if (lane == 31) red[warp] = v;
+  __syncthreads();
+  int before = 0, tot = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int r = red[w];
+    before += w < warp ? r : 0;
+    tot += r;
   }
   __syncthreads();
+  total = tot;
+  return v + before;
 }
 
 // log-density of one scalar family at e (constants as density_constants
@@ -270,58 +255,120 @@ __device__ __forceinline__ float scalar_logpdf(int kind, const float* c,
   return NAN;
 }
 
+// the normals of particle i's draw: for D = 2 the first pair of
+// Philox's four (llpf_box_muller2, the same bits)
+template <int D>
 __device__ __forceinline__ void draw(const PFArgs& a, uint32_t tag,
-                                     uint32_t step, int i, float z[kMaxD]) {
+                                     uint32_t step, int i, float (&z)[D]) {
   if (!a.noise) {
 #pragma unroll
-    for (int e = 0; e < kMaxD; ++e) z[e] = 0.f;
+    for (int e = 0; e < D; ++e) z[e] = 0.f;
     return;
   }
-  llpf_normals4(a.seed, tag, step, (uint32_t)i, 0u, z);
-  if (a.nx > 4) llpf_normals4(a.seed, tag, step, (uint32_t)i, 1u, z + 4);
-}
-
-// Block 0: the central second moments of step t from their partials,
-// divided by the step's sum of weu, written as a symmetric [nx, nx].
-__device__ void write_cov(const PFArgs& a, int t, float s1, float* sred) {
-  const int nx = a.nx, np = nx * (nx + 1) / 2;
-  grid_sums(a.pmom + (size_t)nx * gridDim.x, np, sred);
-  for (int k = threadIdx.x; k < np; k += kThreads) {
-    int d = 0, r = k;
-    while (r >= nx - d) {
-      r -= nx - d;
-      ++d;
-    }
-    const int e = d + r;
-    const float v = sred[k] / s1;
-    a.covs[((size_t)t * nx + d) * nx + e] = v;
-    a.covs[((size_t)t * nx + e) * nx + d] = v;
+  if constexpr (D == 2) {
+    llpf_box_muller2(llpf_philox4x32_10(
+                         make_uint4((uint32_t)i, step, 0u, tag),
+                         llpf_key(a.seed)), z);
+  } else {
+    llpf_normals4(a.seed, tag, step, (uint32_t)i, 0u, z);
+    if (a.nx > 4) llpf_normals4(a.seed, tag, step, (uint32_t)i, 1u, z + 4);
   }
-  __syncthreads();
 }
 
-template <bool kDens, bool kMom>
+// one step's constants in shared memory: the affine coefficients, y, and
+// whether y has a NaN (the update is skipped)
+struct StepC {
+  float coef[kMaxS];
+  float y[kMaxD];
+};
+
+// logp of y against the state xv under step sc's measurement
+template <int D, bool kDens>
+__device__ __forceinline__ float log_weight(const PFArgs& a, const StepC& sc,
+                                            const float (&xv)[D],
+                                            const float* sL2i,
+                                            const float* sMu2,
+                                            const int* sKind,
+                                            const float* sDc) {
+  const int nx = a.nx, ny = a.ny;
+  const float* H = sc.coef + nx * nx + nx;
+  const float* dv = H + ny * nx;
+  float ev[D];
+#pragma unroll
+  for (int e = 0; e < D; ++e) {
+    if (e < ny) {
+      float yh = dv[e];
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        if (j < nx) yh = yh + H[e * nx + j] * xv[j];
+      ev[e] = kDens ? sc.y[e] - yh : (sc.y[e] - sMu2[e]) - yh;
+    }
+  }
+  if (kDens) {
+    float lp = 0.f;
+#pragma unroll
+    for (int e = 0; e < D; ++e)
+      if (e < ny) lp = lp + scalar_logpdf(sKind[e], sDc + e * kDensC, ev[e]);
+    return lp;
+  }
+  float quad = 0.f;
+#pragma unroll
+  for (int r = 0; r < D; ++r) {
+    if (r < ny) {
+      float z = 0.f;
+#pragma unroll
+      for (int e = 0; e <= r; ++e) z = z + sL2i[r * ny + e] * ev[e];
+      quad = quad + z * z;
+    }
+  }
+  return a.cst - 0.5f * quad;
+}
+
+__device__ __forceinline__ bool has_nan(const StepC& sc, int ny) {
+  bool missing = false;
+  for (int e = 0; e < ny; ++e) missing |= isnan(sc.y[e]);
+  return missing;
+}
+
+// pair (d, f), d <= f, of the compact order of nx: (0,0), (0,1), ...,
+// (0,nx-1), (1,1), ...
+__device__ __forceinline__ void pair_of(int k, int nx, int& d, int& f) {
+  d = 0;
+  while (k >= nx - d) {
+    k -= nx - d;
+    ++d;
+  }
+  f = d + k;
+}
+
+// D: the register arrays' size, 2 when nx, ny <= 2 (no lanes of unused
+// dimensions in the step's arithmetic), else D
+template <int D, bool kDens, bool kMom>
 __global__ void __launch_bounds__(kThreads) pf_scan_kernel(PFArgs a) {
+  constexpr int kRm = kMom ? 3 + D : 3;    // a record's fields
+  constexpr int kP = D * (D + 1) / 2;      // moment pairs
+  constexpr int kRpt = kMaxGrid / kThreads;  // records, totals a thread
   cg::grid_group grid = cg::this_grid();
-  __shared__ TempStorage tmp;
+  __shared__ StepC sStep[2];
   __shared__ float sL1[kMaxD * kMaxD], sMu1[kMaxD];
   __shared__ float sL2i[kMaxD * kMaxD], sMu2[kMaxD];
-  __shared__ float sCoef[2 * kMaxD * kMaxD + 2 * kMaxD];
-  __shared__ float sY[kMaxD];
   __shared__ int sKind[kMaxD];
   __shared__ float sDc[kMaxD * kDensC];
   __shared__ float sRed[kWarps * kMaxPairs];
-  __shared__ float sMean[kMaxD];
-  __shared__ float sBcast;
-  __shared__ int sIBcast[2];
+  __shared__ int sRedI[kWarps];
+  __shared__ float sBc[kRec];  // the combined exchange
+  __shared__ int sPb;          // the block's offset in the resample
 
   const int nx = a.nx, ny = a.ny, N = a.N, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int S = nx * nx + nx + ny * nx + ny;
   const int G = (int)gridDim.x;
   const int per = (N + G - 1) / G;
   const int i0 = min(N, (int)blockIdx.x * per), i1 = min(N, i0 + per);
   const bool lead = blockIdx.x == 0 && tid == 0;
   const bool cov = kMom && a.want_cov;
+  const int npairs = nx * (nx + 1) / 2;
+  const int nrec = 3 + (kMom ? nx : 0);
 
   for (int k = tid; k < nx * nx; k += kThreads) sL1[k] = a.L1[k];
   for (int k = tid; k < ny * ny; k += kThreads) sL2i[k] = a.L2i[k];
@@ -331,156 +378,260 @@ __global__ void __launch_bounds__(kThreads) pf_scan_kernel(PFArgs a) {
     if (tid < ny) sKind[tid] = a.dkind[tid];
     for (int k = tid; k < ny * kDensC; k += kThreads) sDc[k] = a.dconst[k];
   }
+  if (a.T > 0) {  // step 0's constants (S <= kMaxS <= kThreads)
+    if (tid < S) sStep[0].coef[tid] = a.coef[tid];
+    if (tid < ny) sStep[0].y[tid] = a.y[tid];
+  }
+  __syncthreads();
 
-  // initial cloud x ~ d0 (or the given x0) and uniform weights (or w0)
+  // The thread's share of the step's record, kept as its particles' new
+  // weights are made: the max mt of its weights and, relative to it,
+  // sum exp(w - mt), its square and (moments) sum exp(w - mt) x, rescaled
+  // when mt grows.  With one particle a thread, exactly exp(w - w) = 1.
+  float mt, st[kRm];
+  auto reset = [&]() {
+    mt = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kRm; ++k) st[k] = 0.f;
+  };
+  auto take = [&](float w, const float (&xv)[D]) {
+    if (w == -INFINITY) return;  // adds nothing
+    float c = 1.f, e = 1.f;
+    if (w > mt) {
+      c = expf(mt - w);  // 0 for the first weight
+      mt = w;
+    } else {
+      e = expf(w - mt);
+    }
+    st[1] = fmaf(st[1], c, e);
+    st[2] = fmaf(st[2], c * c, e * e);
+    if (kMom) {
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        if (d < nx) st[3 + d] = fmaf(st[3 + d], c, e * xv[d]);
+    }
+  };
+
+  // The state and weight of the thread's first particle, kept in
+  // registers from one step's predict to the next (a resample replaces
+  // the cloud, and the next predict reads it from memory)
+  float xr[D], wr = 0.f;
+  bool kept = false;
+  auto keep = [&](const float (&xv)[D], float w) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) xr[d] = xv[d];
+    wr = w;
+    kept = true;
+  };
+
+  // initial cloud x ~ d0 (or the given x0), weights w0 (or uniform) and
+  // step 0's weight update
   float* xc = a.xa;
   float* xn = a.xb;
+  reset();
+  const bool miss0 = a.T > 0 && has_nan(sStep[0], ny);
   for (int i = i0 + tid; i < i1; i += kThreads) {
+    float xv[D];
     if (a.x0 != nullptr) {
-      for (int d = 0; d < nx; ++d) xc[d * N + i] = a.x0[i * nx + d];
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        if (d < nx) xv[d] = a.x0[(size_t)i * nx + d];
     } else {
-      float z[kMaxD];
+      float z[D];
       draw(a, LLPF_TAG_INIT, 0u, i, z);
 #pragma unroll
-      for (int d = 0; d < kMaxD; ++d) {
+      for (int d = 0; d < D; ++d) {
         if (d < nx) {
           float acc = a.mu0[d];
 #pragma unroll
-          for (int e = 0; e < kMaxD; ++e)
+          for (int e = 0; e < D; ++e)
             if (e < nx) acc = acc + a.L0[d * nx + e] * z[e];
-          xc[d * N + i] = acc;
+          xv[d] = acc;
         }
       }
     }
-    a.w[i] = a.w0 != nullptr ? a.w0[i] : a.neg_log_n;
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      if (d < nx) xc[(size_t)d * N + i] = xv[d];
+    float w = a.w0 != nullptr ? a.w0[i] : a.neg_log_n;
+    if (a.T > 0 && !miss0)
+      w = w + log_weight<D, kDens>(a, sStep[0], xv, sL2i, sMu2, sKind, sDc);
+    a.w[i] = w;
+    take(w, xv);
+    if (i == i0 + tid) keep(xv, w);
   }
+
+  // block 0's phase clock (a.prof): thread 0 sums the cycles of each
+  // phase in shared memory
+  __shared__ long long sProf[kPhases];
+  const bool timing = a.prof != nullptr && blockIdx.x == 0 && tid == 0;
+  long long tmark = 0;
+  if (timing) {
+    for (int k = 0; k < kPhases; ++k) sProf[k] = 0;
+    tmark = clock64();
+  }
+  auto mark = [&](int k) {
+    if (timing) {
+      const long long now = clock64();
+      sProf[k] += now - tmark;
+      tmark = now;
+    }
+  };
 
   float ll = 0.f, nres = 0.f, s1_prev = 0.f;
   for (int t = 0; t < a.T; ++t) {
-    __syncthreads();  // the previous step is done with sCoef
-    for (int k = tid; k < S; k += kThreads) sCoef[k] = a.coef[(size_t)t * S + k];
-    if (tid < ny) sY[tid] = a.y[(size_t)t * ny + tid];
-    __syncthreads();
-    const float* M = sCoef;
-    const float* c = M + nx * nx;
-    const float* H = c + nx;
-    const float* dv = H + ny * nx;
-    bool missing = false;
-    for (int e = 0; e < ny; ++e) missing |= isnan(sY[e]);
-
-    // ---- 1. weight --------------------------------------------------
-    float lmax = -INFINITY;
-    for (int i = i0 + tid; i < i1; i += kThreads) {
-      float w1 = a.w[i];
-      if (!missing) {
-        float xv[kMaxD], ev[kMaxD];
-#pragma unroll
-        for (int j = 0; j < kMaxD; ++j)
-          if (j < nx) xv[j] = xc[j * N + i];
-#pragma unroll
-        for (int e = 0; e < kMaxD; ++e) {
-          if (e < ny) {
-            float yh = dv[e];
-#pragma unroll
-            for (int j = 0; j < kMaxD; ++j)
-              if (j < nx) yh = yh + H[e * nx + j] * xv[j];
-            ev[e] = kDens ? sY[e] - yh : (sY[e] - sMu2[e]) - yh;
-          }
-        }
-        if (kDens) {
-          float lp = 0.f;
-#pragma unroll
-          for (int e = 0; e < kMaxD; ++e)
-            if (e < ny) lp = lp + scalar_logpdf(sKind[e], sDc + e * kDensC, ev[e]);
-          w1 = w1 + lp;
-        } else {
-          float quad = 0.f;
-#pragma unroll
-          for (int r = 0; r < kMaxD; ++r) {
-            if (r < ny) {
-              float z = 0.f;
-#pragma unroll
-              for (int e = 0; e <= r; ++e) z = z + sL2i[r * ny + e] * ev[e];
-              quad = quad + z * z;
-            }
-          }
-          w1 = w1 + (a.cst - 0.5f * quad);
-        }
-      }
-      a.w[i] = w1;
-      lmax = fmaxf(lmax, w1);
+    const int par = t & 1;
+    const bool missing = has_nan(sStep[par], ny);
+    // step t + 1's constants into registers now, into shared memory after
+    // the exchange (their buffer's last reader is step t - 1's predict);
+    // the loads' latency hides behind this step's reductions and sync
+    float cpre = 0.f, ypre = 0.f;
+    if (t + 1 < a.T) {
+      if (tid < S) cpre = __ldg(a.coef + (size_t)(t + 1) * S + tid);
+      if (tid < ny) ypre = __ldg(a.y + (size_t)(t + 1) * ny + tid);
     }
-    lmax = BlockReduceF(tmp.rf).Reduce(lmax, MaxOp());
-    if (tid == 0) a.pmax[blockIdx.x] = lmax;
+
+    // ---- 2. normalize: the block's record from its threads' shares ----
+    {
+      const float mb = block_max(mt, sRed);
+      const float f = mt == -INFINITY ? 0.f : expf(mt - mb);
+      st[0] = 0.f;
+      st[1] *= f;
+      st[2] *= f * f;
+#pragma unroll
+      for (int k = 3; k < kRm; ++k) st[k] *= f;
+      block_sums0(st, nrec, sRed);
+      if (tid == 0) {
+        float* rec = a.part + (size_t)par * kRec * G + blockIdx.x;
+        rec[0] = mb;
+        for (int k = 1; k < nrec; ++k) rec[(size_t)k * G] = st[k];
+      }
+    }
+    mark(0);
     grid.sync();
+    mark(1);
 
     // the central moments of the previous step: every block has written
-    // its partials by now
-    if (cov && t > 0 && blockIdx.x == 0) write_cov(a, t - 1, s1_prev, sRed);
-
-    // ---- 2. normalize -----------------------------------------------
-    const float m = grid_max(a.pmax, tmp, &sBcast);
-    float s1 = 0.f, s2 = 0.f;
-    float sx[kMaxD];
-#pragma unroll
-    for (int d = 0; d < kMaxD; ++d) sx[d] = 0.f;
-    for (int i = i0 + tid; i < i1; i += kThreads) {
-      const float e = expf(a.w[i] - m);
-      a.weu[i] = e;
-      s1 += e;
-      s2 += e * e;
-      if (kMom) {
-#pragma unroll
-        for (int d = 0; d < kMaxD; ++d)
-          if (d < nx) sx[d] += e * xc[d * N + i];
+    // its record by now
+    if (cov && t > 0 && blockIdx.x == 0 && warp == 0) {
+      const float* pc = a.pcov + (size_t)((t - 1) & 1) * kMaxPairs * G;
+      for (int k = 0; k < npairs; ++k) {
+        float s = 0.f;
+        for (int b = lane; b < G; b += 32) s += __ldcg(pc + (size_t)k * G + b);
+        s = warp_sum(s) / s1_prev;
+        int d, f;
+        pair_of(k, nx, d, f);
+        if (lane == 0) {
+          a.covs[((size_t)(t - 1) * nx + d) * nx + f] = s;
+          a.covs[((size_t)(t - 1) * nx + f) * nx + d] = s;
+        }
       }
     }
-    s1 = BlockReduceF(tmp.rf).Sum(s1);
-    __syncthreads();
-    s2 = BlockReduceF(tmp.rf).Sum(s2);
-    if (tid == 0) {
-      a.ps1[blockIdx.x] = s1;
-      a.ps2[blockIdx.x] = s2;
+
+    // ---- the exchange: thread tid takes the records tid + q kThreads (one
+    // load latency for all), then block reductions in fixed order -------
+    {
+      const float* rec = a.part + (size_t)par * kRec * G;
+      float rv[kRpt][kRm], m_t = -INFINITY;
+#pragma unroll
+      for (int q = 0; q < kRpt; ++q) {
+        const int b = tid + q * kThreads;
+#pragma unroll
+        for (int k = 0; k < kRm; ++k)
+          rv[q][k] = (b < G && k < nrec) ? __ldcg(rec + (size_t)k * G + b)
+                                         : (k == 0 ? -INFINITY : 0.f);
+        m_t = fmaxf(m_t, rv[q][0]);
+      }
+      const float m = block_max(m_t, sRed);
+      float c[kRm];
+#pragma unroll
+      for (int k = 0; k < kRm; ++k) c[k] = 0.f;
+#pragma unroll
+      for (int q = 0; q < kRpt; ++q) {
+        // a block of -inf weights adds nothing
+        const float f = rv[q][0] == -INFINITY ? 0.f : expf(rv[q][0] - m);
+        c[1] += f * rv[q][1];
+        c[2] += (f * f) * rv[q][2];
+#pragma unroll
+        for (int k = 3; k < kRm; ++k) c[k] += f * rv[q][k];
+      }
+      block_sums0(c, nrec, sRed);
+      if (tid == 0) {
+        // every weight -inf: exp(-inf - -inf) is NaN, as the sequential
+        // route's normalization gives
+        const bool dead = m == -INFINITY;
+        sBc[0] = m;
+        for (int k = 1; k < nrec; ++k) sBc[k] = dead ? NAN : c[k];
+      }
     }
-    if (kMom) block_sums(sx, nx, sRed, a.pmom + blockIdx.x, G);
-    grid.sync();
+    if (t + 1 < a.T) {  // step t + 1's constants, loaded before the sync
+      StepC& sc = sStep[par ^ 1];
+      if (tid < S) sc.coef[tid] = cpre;
+      if (tid < ny) sc.y[tid] = ypre;
+    }
+    __syncthreads();
+    mark(2);
 
     // ---- 3. ll, moments, trigger, resample ----------------------------
-    const float S1 = grid_sum(a.ps1, tmp, &sBcast);
-    const float S2 = grid_sum(a.ps2, tmp, &sBcast);
+    const float m = sBc[0], S1 = sBc[1], S2 = sBc[2];
     const float ll_t = missing ? 0.f : m + logf(S1);
     const float neff = 1.0f / (S2 / (S1 * S1));
     if (lead) ll += ll_t;
     if (kMom) {
-      grid_sums(a.pmom, nx, sRed);
-      if (tid < nx) sMean[tid] = sRed[tid] / S1;
-      __syncthreads();
-      if (blockIdx.x == 0 && tid < nx) a.means[(size_t)t * nx + tid] = sMean[tid];
+      if (blockIdx.x == 0 && tid < nx)
+        a.means[(size_t)t * nx + tid] = sBc[3 + tid] / S1;
       if (cov) {
-        // pairs (d, f), d <= f, in the kMaxD packing: register indices
+        float mean[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) mean[d] = d < nx ? sBc[3 + d] / S1 : 0.f;
+        // pairs (d, f), d <= f, in the D packing: register indices
         // fixed at compile time whatever nx is
-        float acc[kMaxPairs];
+        float acc[kP];
 #pragma unroll
-        for (int k = 0; k < kMaxPairs; ++k) acc[k] = 0.f;
+        for (int k = 0; k < kP; ++k) acc[k] = 0.f;
         for (int i = i0 + tid; i < i1; i += kThreads) {
-          const float e = a.weu[i];
-          float dx[kMaxD];
+          const float e = expf(a.w[i] - m);
+          float dx[D];
 #pragma unroll
-          for (int d = 0; d < kMaxD; ++d)
-            dx[d] = d < nx ? xc[d * N + i] - sMean[d] : 0.f;
+          for (int d = 0; d < D; ++d)
+            dx[d] = d < nx ? __ldcg(xc + (size_t)d * N + i) - mean[d] : 0.f;
 #pragma unroll
-          for (int d = 0, k = 0; d < kMaxD; ++d)
+          for (int d = 0, k = 0; d < D; ++d)
 #pragma unroll
-            for (int f = d; f < kMaxD; ++f, ++k)
+            for (int f = d; f < D; ++f, ++k)
               if (f < nx) acc[k] += e * dx[d] * dx[f];
         }
-        block_pair_sums(acc, nx, sRed, a.pmom + (size_t)nx * G + blockIdx.x, G);
+        // the D packing's sums, stored in the compact order of nx
+#pragma unroll
+        for (int d = 0, k = 0; d < D; ++d)
+#pragma unroll
+          for (int f = d; f < D; ++f, ++k)
+            if (f < nx) {
+              const float s = warp_sum(acc[k]);
+              if (lane == 0) sRed[warp * kMaxPairs + k] = s;
+            }
+        __syncthreads();
+        if (tid < kP) {
+          int d = 0, r = tid;  // (d, f) of packed index tid
+          while (r >= D - d) {
+            r -= D - d;
+            ++d;
+          }
+          const int f = d + r;
+          if (f < nx) {
+            float s = 0.f;
+            for (int w = 0; w < kWarps; ++w) s += sRed[w * kMaxPairs + tid];
+            a.pcov[((size_t)par * kMaxPairs + d * nx - d * (d - 1) / 2 + (f - d)) * G +
+                   blockIdx.x] = s;
+          }
+        }
+        __syncthreads();  // sRed is read; the next step's block_max writes it
         s1_prev = S1;
       }
     }
-    if (a.no_resample || !(a.always || neff < a.thr_n)) {
-      for (int i = i0 + tid; i < i1; i += kThreads) a.w[i] = a.w[i] - ll_t;
-    } else {
+    mark(3);
+    const bool resample = !a.no_resample && (a.always || neff < a.thr_n);
+    if (resample) {
       const float r =
           a.noise ? llpf_uniform_co(
                         llpf_philox4x32_10(
@@ -488,97 +639,135 @@ __global__ void __launch_bounds__(kThreads) pf_scan_kernel(PFArgs a) {
                             llpf_key(a.seed))
                             .x)
                   : 0.5f;
-      // quantized weights and their exact int prefix sum over the block
+      auto quantum = [&](int i) {  // floor(we 2^24 + 0.5) of particle i
+        const float we = expf(a.w[i] - m) / S1;
+        return (int)floorf(__fadd_rn(__fmul_rn(we, 16777216.0f), 0.5f));
+      };
+      // the quantized weights' exclusive prefix over the block (exact)
       int carry = 0;
       for (int base = i0; base < i1; base += kThreads) {
         const int i = base + tid;
-        int wi = 0;
-        if (i < i1) {
-          const float we = a.weu[i] / S1;
-          wi = (int)floorf(__fadd_rn(__fmul_rn(we, 16777216.0f), 0.5f));
-        }
-        int incl, tot;
-        BlockScanI(tmp.si).InclusiveSum(wi, incl, tot);
-        __syncthreads();
-        if (i < i1) a.kbuf[i] = carry + incl;
+        const int wi = i < i1 ? quantum(i) : 0;
+        int tot;
+        const int incl = block_scan(wi, sRedI, tot);
+        if (i < i1) a.kbuf[i] = carry + incl - wi;
         carry += tot;
       }
-      if (tid == 0) a.pint[blockIdx.x] = carry;
+      if (tid == 0) a.ptot[blockIdx.x] = carry;
+      mark(4);
       grid.sync();
+      mark(5);
 
-      // slot boundaries K from the global prefix sums
-      int before = 0, total = 0;
-      for (int k = tid; k < G; k += kThreads) {
-        const int v = __ldcg(a.pint + k);
-        total += v;
-        if (k < (int)blockIdx.x) before += v;
+      // the block's offset P_b and the total: thread tid scans blocks
+      // tid kRpt .. tid kRpt + kRpt - 1
+      int tq[kRpt], mine = 0, total;
+#pragma unroll
+      for (int q = 0; q < kRpt; ++q) {
+        const int b = tid * kRpt + q;
+        tq[q] = b < G ? __ldcg(a.ptot + b) : 0;
+        mine += tq[q];
       }
-      before = BlockReduceI(tmp.ri).Sum(before);
-      __syncthreads();
-      total = BlockReduceI(tmp.ri).Sum(total);
-      if (tid == 0) {
-        sIBcast[0] = before;
-        sIBcast[1] = total;
+      int excl = block_scan(mine, sRedI, total) - mine;
+#pragma unroll
+      for (int q = 0; q < kRpt; ++q) {
+        if (tid * kRpt + q == (int)blockIdx.x) sPb = excl;
+        excl += tq[q];
       }
       __syncthreads();
-      before = sIBcast[0];
-      total = sIBcast[1];
+      const int Pb = sPb;
       const float scale = __fdiv_rn((float)N, (float)total);
+      auto k_of = [&](int c) {  // K of a global prefix c
+        const float K = ceilf(__fsub_rn(__fmul_rn((float)c, scale), r));
+        return (int)fminf(fmaxf(K, 0.f), (float)N);
+      };
+      // scatter: particle i fills slots [K_{i-1}, K_i), so slot k takes
+      // particle #{i : K_i <= k} (the last particle up to slot N - 1)
       for (int i = i0 + tid; i < i1; i += kThreads) {
-        const float cf = (float)(a.kbuf[i] + before);
-        float K = ceilf(__fsub_rn(__fmul_rn(cf, scale), r));
-        K = fminf(fmaxf(K, 0.f), (float)N);
-        a.kbuf[i] = (int)K;
-      }
-      grid.sync();
-
-      // gather: slot k takes particle #{i : K_i <= k}
-      for (int k = i0 + tid; k < i1; k += kThreads) {
-        int lo = 0, hi = N;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (__ldcg(a.kbuf + mid) <= k)
-            lo = mid + 1;
-          else
-            hi = mid;
+        const int c0 = Pb + a.kbuf[i];
+        const int lo = k_of(c0);
+        const int hi = i == N - 1 ? N : k_of(c0 + quantum(i));
+        if (lo < hi) {
+          float xv[D];
+#pragma unroll
+          for (int d = 0; d < D; ++d)
+            if (d < nx) xv[d] = __ldcg(xc + (size_t)d * N + i);
+          for (int k = lo; k < hi; ++k) {
+#pragma unroll
+            for (int d = 0; d < D; ++d)
+              if (d < nx) xn[(size_t)d * N + k] = xv[d];
+          }
         }
-        const int j = min(lo, N - 1);
-        for (int d = 0; d < nx; ++d) xn[d * N + k] = __ldcg(xc + d * N + j);
-        a.w[k] = a.neg_log_n;
       }
       float* sw = xc;
       xc = xn;
       xn = sw;
       if (lead) nres += 1.f;
+      mark(6);
+      grid.sync();  // every slot written
     }
 
-    // ---- 4. predict ---------------------------------------------------
+    // ---- 4. predict, and step t + 1's weight update -----------------
+    const StepC& sc = sStep[par];
+    const float* M = sc.coef;
+    const float* c = M + nx * nx;
+    const bool next = t + 1 < a.T;
+    const bool miss1 = next && has_nan(sStep[par ^ 1], ny);
+    reset();
+    const bool use_kept = kept && !resample;
     for (int i = i0 + tid; i < i1; i += kThreads) {
-      float xv[kMaxD], z[kMaxD];
+      const bool first = i == i0 + tid;
+      float xv[D], xp[D], z[D];
 #pragma unroll
-      for (int j = 0; j < kMaxD; ++j)
-        if (j < nx) xv[j] = xc[j * N + i];
+      for (int j = 0; j < D; ++j)
+        if (j < nx)
+          xv[j] = first && use_kept ? xr[j] : __ldcg(xc + (size_t)j * N + i);
       draw(a, LLPF_TAG_PROPAGATE, (uint32_t)t, i, z);
 #pragma unroll
-      for (int d = 0; d < kMaxD; ++d) {
+      for (int d = 0; d < D; ++d) {
         if (d < nx) {
           float acc = c[d] + sMu1[d];
 #pragma unroll
-          for (int e = 0; e < kMaxD; ++e)
+          for (int e = 0; e < D; ++e)
             if (e < nx)
               acc = acc + M[d * nx + e] * xv[e] + sL1[d * nx + e] * z[e];
-          xc[d * N + i] = acc;
+          xp[d] = acc;
+          xc[(size_t)d * N + i] = acc;
+        }
+      }
+      float w = resample ? a.neg_log_n
+                         : (first && use_kept ? wr : a.w[i]) - ll_t;
+      if (next && !miss1)
+        w = w + log_weight<D, kDens>(a, sStep[par ^ 1], xp, sL2i, sMu2, sKind,
+                                  sDc);
+      a.w[i] = w;
+      take(w, xp);
+      if (first) keep(xp, w);
+    }
+    mark(7);
+  }
+  if (timing)
+    for (int k = 0; k < kPhases; ++k) a.prof[k] = sProf[k];
+  if (cov && a.T > 0) {
+    grid.sync();
+    if (blockIdx.x == 0 && warp == 0) {
+      const float* pc = a.pcov + (size_t)((a.T - 1) & 1) * kMaxPairs * G;
+      for (int k = 0; k < npairs; ++k) {
+        float s = 0.f;
+        for (int b = lane; b < G; b += 32) s += __ldcg(pc + (size_t)k * G + b);
+        s = warp_sum(s) / s1_prev;
+        int d, f;
+        pair_of(k, nx, d, f);
+        if (lane == 0) {
+          a.covs[((size_t)(a.T - 1) * nx + d) * nx + f] = s;
+          a.covs[((size_t)(a.T - 1) * nx + f) * nx + d] = s;
         }
       }
     }
   }
-  if (cov && a.T > 0) {
-    grid.sync();
-    if (blockIdx.x == 0) write_cov(a, a.T - 1, s1_prev, sRed);
-  }
   if (a.xfin != nullptr) {
     for (int i = i0 + tid; i < i1; i += kThreads) {
-      for (int d = 0; d < nx; ++d) a.xfin[i * nx + d] = xc[d * N + i];
+      for (int d = 0; d < nx; ++d)
+        a.xfin[(size_t)i * nx + d] = __ldcg(xc + (size_t)d * N + i);
       a.wfin[i] = a.w[i];
     }
   }
@@ -588,26 +777,61 @@ __global__ void __launch_bounds__(kThreads) pf_scan_kernel(PFArgs a) {
   }
 }
 
+// A measurement kernel, not on any path (scripts/torch_kernel_probe.py
+// `sync`): `iters` rounds of one grid.sync() each; with `reads`, every
+// block first publishes one partial and after the sync reduces all
+// gridDim.x of them (__ldcg), as kernel A's grid-wide sums do.  Gives the
+// cost of a sync, and of a sync with its partial read, at a grid size.
+__global__ void grid_sync_probe_kernel(float* part, int iters, int reads) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float sw[32];
+  const int G = (int)gridDim.x, lane = threadIdx.x & 31,
+            warp = threadIdx.x >> 5, nw = (int)blockDim.x >> 5;
+  float acc = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    float* p = part + (it & 1) * G;
+    if (reads && threadIdx.x == 0) p[blockIdx.x] = acc + (float)it;
+    grid.sync();
+    if (reads) {
+      float v = 0.f;
+      for (int k = threadIdx.x; k < G; k += blockDim.x) v += __ldcg(p + k);
+      v = warp_sum(v);
+      if (lane == 0) sw[warp] = v;
+      __syncthreads();
+      v = 0.f;
+      for (int w = 0; w < nw; ++w) v += sw[w];
+      __syncthreads();
+      acc += 1e-30f * v;
+    }
+  }
+  if (acc == 12345.f) part[0] = acc;  // keeps the reads
+}
+
 using KernelFn = void (*)(PFArgs);
 
 // mode bits: 1 moments, 2 scalar densities
-KernelFn kernel_of(int mode) {
+template <int D>
+KernelFn kernel_of_d(int mode) {
   switch (mode & 3) {
-    case 0: return pf_scan_kernel<false, false>;
-    case 1: return pf_scan_kernel<false, true>;
-    case 2: return pf_scan_kernel<true, false>;
-    default: return pf_scan_kernel<true, true>;
+    case 0: return pf_scan_kernel<D, false, false>;
+    case 1: return pf_scan_kernel<D, false, true>;
+    case 2: return pf_scan_kernel<D, true, false>;
+    default: return pf_scan_kernel<D, true, true>;
   }
+}
+
+KernelFn kernel_of(int mode, int nx, int ny) {
+  return nx <= 2 && ny <= 2 ? kernel_of_d<2>(mode) : kernel_of_d<kMaxD>(mode);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Grid size for a cooperative launch of the mode's kernel at N particles:
-// as many blocks as are co-resident on the card, but no more than one
-// thread per particle.
-int llpf_pf_scan_grid(int N, int mode, int* grid) {
+// Grid size for a cooperative launch of the kernel for this mode and these
+// sizes at N particles: as many blocks as are co-resident on the card, but
+// no more than one thread a particle and no more than kMaxGrid.
+int llpf_pf_scan_grid(int N, int mode, int nx, int ny, int* grid) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -617,31 +841,39 @@ int llpf_pf_scan_grid(int N, int mode, int* grid) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, (const void*)kernel_of(mode), kThreads, 0);
+      &per_sm, (const void*)kernel_of(mode, nx, ny), kThreads, 0);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   int g = per_sm * sms;
   const int need = (N + kThreads - 1) / kThreads;
   if (need < g) g = need;
+  if (g > kMaxGrid) g = kMaxGrid;
   *grid = g < 1 ? 1 : g;
   return (int)cudaGetLastError();
+}
+
+// The scratch an llpf_pf_scan call at grid G needs: `part` floats of
+// exchange and central-moment records, ints `tot` of block totals.
+int llpf_pf_scan_scratch(int G, int* part, int* tot) {
+  *part = 2 * kRec * G + 2 * kMaxPairs * G;
+  *tot = G;
+  return 0;
 }
 
 int llpf_pf_scan(const float* y, const float* coef, const float* L1,
                  const float* mu1, const float* L2i, const float* mu2,
                  const float* L0, const float* mu0, const float* x0,
                  const float* w0, const int32_t* dkind, const float* dconst,
-                 float* xa, float* xb, float* w, float* weu, int32_t* kbuf,
-                 float* pmax, float* ps1, float* ps2, int32_t* pint,
-                 float* pmom, float* out, float* means, float* covs,
-                 float* xfin, float* wfin, int T, int N, int nx, int ny,
-                 float cst, float thr_n, float neg_log_n, int always,
-                 int noise, int no_resample, int want_cov, int mode,
-                 uint64_t seed, int grid, void* stream) {
-  if (nx < 1 || nx > kMaxD || ny < 1 || ny > kMaxD || N < 1 || T < 0)
+                 float* xa, float* xb, float* w, int32_t* kbuf, float* part,
+                 int32_t* ptot, float* out, float* means, float* covs,
+                 float* xfin, float* wfin, long long* prof, int T, int N,
+                 int nx, int ny, float cst, float thr_n, float neg_log_n,
+                 int always, int noise, int no_resample, int want_cov,
+                 int mode, uint64_t seed, int grid, void* stream) {
+  if (nx < 1 || nx > kMaxD || ny < 1 || ny > kMaxD || N < 1 || T < 0 ||
+      grid < 1 || grid > kMaxGrid)
     return (int)cudaErrorInvalidValue;
-  if ((mode & 1) && (means == nullptr || pmom == nullptr ||
-                     (want_cov && covs == nullptr)))
+  if ((mode & 1) && (means == nullptr || (want_cov && covs == nullptr)))
     return (int)cudaErrorInvalidValue;
   if ((mode & 2) && (dkind == nullptr || dconst == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -662,18 +894,16 @@ int llpf_pf_scan(const float* y, const float* coef, const float* L1,
   a.xa = xa;
   a.xb = xb;
   a.w = w;
-  a.weu = weu;
   a.kbuf = kbuf;
-  a.pmax = pmax;
-  a.ps1 = ps1;
-  a.ps2 = ps2;
-  a.pint = pint;
-  a.pmom = pmom;
+  a.part = part;
+  a.pcov = part + 2 * kRec * grid;
+  a.ptot = ptot;
   a.out = out;
   a.means = means;
   a.covs = covs;
   a.xfin = xfin;
   a.wfin = wfin;
+  a.prof = prof;
   a.T = T;
   a.N = N;
   a.nx = nx;
@@ -688,8 +918,19 @@ int llpf_pf_scan(const float* y, const float* coef, const float* L1,
   a.seed = seed;
   void* args[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)kernel_of(mode), dim3(grid), dim3(kThreads), args, 0,
+      (const void*)kernel_of(mode, nx, ny), dim3(grid), dim3(kThreads), args, 0,
       (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// grid_sync_probe_kernel at grid x threads (part: 2 * grid floats)
+int llpf_grid_sync_probe(float* part, int grid, int threads, int iters,
+                         int reads, void* stream) {
+  void* args[] = {&part, &iters, &reads};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)grid_sync_probe_kernel, dim3(grid), dim3(threads), args,
+      0, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

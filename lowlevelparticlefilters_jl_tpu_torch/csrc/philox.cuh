@@ -63,6 +63,15 @@ __device__ __forceinline__ void llpf_box_muller4(uint4 b, float out[4]) {
   out[3] = r1 * s1;
 }
 
+// the first pair alone: out[0], out[1] of llpf_box_muller4, the same bits
+__device__ __forceinline__ void llpf_box_muller2(uint4 b, float out[2]) {
+  const float r0 = sqrtf(-2.0f * logf(llpf_uniform_oc(b.x)));
+  float s0, c0;
+  sincosf(6.283185307179586f * llpf_uniform_co(b.y), &s0, &c0);
+  out[0] = r0 * c0;
+  out[1] = r0 * s0;
+}
+
 __device__ __forceinline__ uint2 llpf_key(uint64_t seed) {
   return make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
 }

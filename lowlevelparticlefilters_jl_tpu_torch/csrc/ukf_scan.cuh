@@ -9,26 +9,33 @@
 //
 // This file is not compiled on its own.  kernels/ukf_scan.py generates one
 // source per filter: the sizes (LLPF_NX, LLPF_NY, LLPF_NU), the kind
-// (LLPF_UKF or LLPF_EKF), the hook switches, the count of the callbacks'
-// constants (LLPF_NC), and the user callbacks as scalar code
-// (kernels/callback_codegen.py: for G cb_f, cb_g and, where present,
-// cb_inn, cb_mean, cb_smean; for I cb_fvj and cb_gvj, each the value and
-// then the Jacobian in x, differentiated at code generation or the user's
-// Ajac/Cjac), then includes this file; nvcc builds it for sm_90a at first
-// use.  The callbacks' tensor constants arrive in `c`, read on each call.
-//
-// Design.  I: see ekf_scan_kernel.  G: one warp; lane i < 2 NX + 1
-// evaluates the callback on sigma point i, and the UT sums are butterfly
-// shuffles, so every lane holds every sum.  The Cholesky factors and the
-// solves are the same on all lanes (each lane computes them; nothing is
-// broadcast).  The mean and state-mean hooks see all sigma points, which
-// each lane gathers with shuffles.  In both, a second warp stages y and u
-// into shared memory a chunk of steps ahead (scan_common.cuh).
+// (LLPF_UKF or LLPF_EKF), for G the sigma-point layout (LLPF_UKF_LANES)
+// and the hook switches, the count of the callbacks' constants (LLPF_NC),
+// and the user callbacks as scalar code (kernels/callback_codegen.py: for
+// G cb_f, cb_g and, where present, cb_inn, cb_mean, cb_smean; for I cb_fvj
+// and cb_gvj, each the value and then the Jacobian in x, differentiated at
+// code generation or the user's Ajac/Cjac), then includes this file; nvcc
+// builds it for sm_90a at first use.  The callbacks' tensor constants
+// arrive in `c`, read on each call.
 //
 // Bound on the card: latency.  Each step is a serial chain of dependent
-// operations (two callback passes, the Cholesky factorizations, the
-// solves; for G the shuffles) on one warp of one SM of 132.  The chain is
-// read from the SASS by kernels/sass.py (PERF.md).
+// operations (the callbacks, the Cholesky factorizations, the solves) on
+// one thread (I, and G with LLPF_UKF_LANES 1) or one warp (G with 32) of
+// one SM of 132.  The chain is read from the SASS by kernels/sass.py
+// (PERF.md).
+//
+// Design, both kernels (run_scan): the worker, one thread or the first
+// warp, runs the recursion with its state and the callbacks' constants in
+// registers (beyond 64 constants, in shared or device memory: below) and
+// does only the work the next step depends on: the symmetric products
+// built once and mirrored, the Cholesky factors with one rsqrtf a diagonal
+// entry and multiplications by the reciprocal diagonal everywhere else.
+// Each step it leaves e and L = chol(S) (and, for the trajectory, the
+// solution fields) in a shared-memory ring; the second warp, which also
+// stages y and u a chunk ahead, reads the previous chunk from the ring,
+// sums the ll terms (each lane its steps in order, then a butterfly over
+// the lanes) and writes the trajectory with coalesced stores.  The two
+// warps meet at one __syncthreads a chunk.  I: see ekf_step; G: ukf_step.
 //
 // TPU workarounds not ported: the 128-step lane blocks and iota-mask step
 // extraction, _meta_acc's static-offset read-modify-writes, the rank-2-only
@@ -45,7 +52,6 @@ constexpr int NX = LLPF_NX;
 constexpr int NY = LLPF_NY;
 constexpr int NU = LLPF_NU;
 constexpr int NUB = NU > 0 ? NU : 1;
-constexpr int NSIG = 2 * NX + 1;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct ScanOut {
@@ -57,84 +63,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
-
-// one step's solution: prior (xp, Rp), posterior (x, R), e, S and K^T
-__device__ __forceinline__ void write_step(
-    const ScanOut& out, int64_t t, const float (&xp)[NX],
-    const float (&Rp)[NX][NX], const float (&x)[NX], const float (&R)[NX][NX],
-    const float (&e)[NY], const float (&S)[NY][NY],
-    const float (&Kt)[NY][NX]) {
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    out.x[t * NX + i] = xp[i];
-    out.xt[t * NX + i] = x[i];
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      out.R[(t * NX + i) * NX + j] = Rp[i][j];
-      out.Rt[(t * NX + i) * NX + j] = R[i][j];
-    }
-#pragma unroll
-    for (int j = 0; j < NY; ++j) out.K[(t * NX + i) * NY + j] = Kt[j][i];
-  }
-#pragma unroll
-  for (int i = 0; i < NY; ++i) {
-    out.e[t * NY + i] = e[i];
-#pragma unroll
-    for (int j = 0; j < NY; ++j) out.S[(t * NY + i) * NY + j] = S[i][j];
-  }
-}
-
-// the correct step once L = chol(S), the innovation e and the gain's
-// right-hand side (K^T = S^{-1} Kt on entry) are known: K^T, the posterior
-// mean x + e K^T, and the step's log-likelihood
-__device__ __forceinline__ float gain_and_ll(const float (&L)[NY][NY],
-                                             const float (&e)[NY],
-                                             float (&Kt)[NY][NX],
-                                             float (&x)[NX]) {
-  tri_lower(L, Kt, NY, NX);
-  tri_upper_t(L, Kt, NY, NX);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    float a = 0.f;
-#pragma unroll
-    for (int j = 0; j < NY; ++j) a += e[j] * Kt[j][i];
-    x[i] += a;
-  }
-  float w[NY][1];
-#pragma unroll
-  for (int j = 0; j < NY; ++j) w[j][0] = e[j];
-  tri_lower(L, w, NY, 1);
-  float q = 0.f, ld = 0.f;
-#pragma unroll
-  for (int j = 0; j < NY; ++j) {
-    q += w[j][0] * w[j][0];
-    ld += logf(L[j][j]);
-  }
-  return -0.5f * (q + 2.f * ld + (float)(NY * 1.8378770664093453));
-}
-
-// y | u of the steps of chunk ch, by the 32 threads of the staging warp
-__device__ __forceinline__ void stage_chunk(float* b, const float* ys,
-                                            const float* us, int ch, int T,
-                                            int lane) {
-  const int t0 = ch * kChunk, tc = min(kChunk, T - t0);
-  stage_rows(b, ys, NY, t0, tc, lane, 32);
-  stage_rows(b + kChunk * NY, us, NU, t0, tc, lane, 32);
-}
-
-template <int N>
-__device__ __forceinline__ void copy_mat(const float (&a)[N][N],
-                                         float (&b)[N][N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) b[i][j] = a[i][j];
-}
-
-#if defined(LLPF_EKF)
-// ---------------------------------------------------------------------------
-// kernel I: the EKF (ukf_scan.py:1183-1230)
-// ---------------------------------------------------------------------------
 
 constexpr int NTX = NX * (NX + 1) / 2, NTY = NY * (NY + 1) / 2;
 // the callbacks' constants (LLPF_NC floats): in registers up to 64, else
@@ -152,14 +80,14 @@ constexpr int kOffL = NY, kOffXp = NY + NTY, kOffRp = kOffXp + NX,
 // steps a chunk: 128, halved while the staged inputs, the ring's two
 // buffers and `fixed` bytes (the constants' copy) would pass kSmemBytes of
 // static shared memory
-__host__ __device__ constexpr int ekf_chunk(int floats_a_step, int fixed) {
+__host__ __device__ constexpr int scan_chunk(int floats_a_step, int fixed) {
   int ch = 128;
   while (ch > 8 && 2 * ch * floats_a_step * 4 + fixed > kSmemBytes) ch /= 2;
   return ch;
 }
 
 // whether the constants go to shared memory beside a ring of this width
-__host__ __device__ constexpr bool ekf_consts_shared(int floats_a_step) {
+__host__ __device__ constexpr bool consts_shared(int floats_a_step) {
   return LLPF_NC > 64 && 2 * 8 * floats_a_step * 4 + NC * 4 <= kSmemBytes;
 }
 
@@ -169,7 +97,7 @@ __host__ __device__ constexpr int pk(int i, int j) {
 }
 
 // the ll term of one ring entry: w = L^{-1} e, -(|w|^2 + 2 log|L| +
-// NY log 2 pi) / 2 (gain_and_ll's formulas)
+// NY log 2 pi) / 2
 __device__ __forceinline__ float ring_ll(const float* r) {
   float w[NY], q = 0.f, ld = 0.f;
 #pragma unroll
@@ -212,33 +140,117 @@ __device__ __forceinline__ void ring_solution(const ScanOut& out,
   ring_field<RW>(out.K, ring, t0, tc, kOffK, NX * NY, NY, false, lane);
 }
 
-// Design.  One thread (the worker) runs the recursion, its state and the
-// callbacks' constants in registers (beyond 64 constants, in shared or
-// device memory: above), and does only the work the next step
-// depends on: the value-and-Jacobian callbacks (cb_gvj, cb_fvj: the
-// Jacobians differentiated at code generation, or the user's), the
-// symmetric products built once and mirrored, the Cholesky factor with
-// one rsqrtf a diagonal entry and multiplications by the reciprocal
-// diagonal everywhere else.  Each step it leaves e and L (and, for the
-// trajectory, the solution fields) in a shared-memory ring; the second
-// warp, which also stages y and u a chunk ahead, reads the previous chunk
-// from the ring, sums the ll terms (each lane its steps in order, then a
-// butterfly over the lanes) and writes the trajectory with coalesced
-// stores.  The two warps meet at one __syncthreads a chunk.
+// L = chol(S) from the lower triangle of S: one rsqrtf a diagonal entry
+// (rd its reciprocal), products elsewhere; L's upper triangle is zero
+template <int N>
+__device__ __forceinline__ void chol_rsqrt(const float (&S)[N][N],
+                                           float (&L)[N][N],
+                                           float (&rd)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j > i) {
+        L[i][j] = 0.f;
+        continue;
+      }
+      float a = S[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) a -= L[i][k] * L[j][k];
+      if (i == j) {
+        rd[i] = rsqrtf(a);
+        L[i][i] = a * rd[i];
+      } else {
+        L[i][j] = a * rd[j];
+      }
+    }
+}
+
+// K^T = S^{-1} B for B [NY][NX] (in place): L^{-1}, then L^{-T}, by the
+// reciprocal diagonal
+__device__ __forceinline__ void gain_solve(const float (&L)[NY][NY],
+                                           const float (&rd)[NY],
+                                           float (&Kt)[NY][NX]) {
+#pragma unroll
+  for (int j = 0; j < NY; ++j)
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      float a = Kt[j][i];
+#pragma unroll
+      for (int k = 0; k < j; ++k) a -= L[j][k] * Kt[k][i];
+      Kt[j][i] = a * rd[j];
+    }
+#pragma unroll
+  for (int j = NY - 1; j >= 0; --j)
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      float a = Kt[j][i];
+#pragma unroll
+      for (int k = j + 1; k < NY; ++k) a -= L[k][j] * Kt[k][i];
+      Kt[j][i] = a * rd[j];
+    }
+}
+
+// the ring entry's fields before the update: e, L, and with the
+// trajectory the prior x, R and S (packed)
 template <bool TRAJ>
-__global__ void __launch_bounds__(64)
-    ekf_scan_kernel(const float* __restrict__ ys, const float* __restrict__ us,
-                    const float* __restrict__ x0, const float* __restrict__ P0,
-                    const float* __restrict__ R1, const float* __restrict__ R2,
-                    const float* __restrict__ c, float alpha, float Ts, int T,
-                    float* __restrict__ ll_out, ScanOut out) {
+__device__ __forceinline__ void ring_prior(float* r, const float (&e)[NY],
+                                           const float (&L)[NY][NY],
+                                           const float (&x)[NX],
+                                           const float (&R)[NX][NX],
+                                           const float (&S)[NY][NY]) {
+#pragma unroll
+  for (int j = 0; j < NY; ++j) {
+    r[j] = e[j];
+#pragma unroll
+    for (int k = 0; k <= j; ++k) r[kOffL + pk(j, k)] = L[j][k];
+  }
+  if (TRAJ) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      r[kOffXp + i] = x[i];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) r[kOffRp + pk(i, j)] = R[i][j];
+    }
+#pragma unroll
+    for (int i = 0; i < NY; ++i)
+#pragma unroll
+      for (int j = 0; j <= i; ++j) r[kOffS + pk(i, j)] = S[i][j];
+  }
+}
+
+// ... and after it: the posterior x, R and K
+__device__ __forceinline__ void ring_post(float* r, const float (&x)[NX],
+                                          const float (&R)[NX][NX],
+                                          const float (&Kt)[NY][NX]) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    r[kOffXt + i] = x[i];
+#pragma unroll
+    for (int j = 0; j <= i; ++j) r[kOffRt + pk(i, j)] = R[i][j];
+#pragma unroll
+    for (int j = 0; j < NY; ++j) r[kOffK + i * NY + j] = Kt[j][i];
+  }
+}
+
+// The frame of both kernels (see the file's design note).  Threads
+// [0, WORKERS) run step(y, u, tk, cs, r, write) for every step in order,
+// `write` true on thread 0, which alone fills the ring entry r; threads
+// [32, 64) stage the inputs and consume the ring.  The constants are
+// loaded by every worker thread.
+template <bool TRAJ, int WORKERS, class Step>
+__device__ __forceinline__ void run_scan(const float* __restrict__ ys,
+                                         const float* __restrict__ us,
+                                         const float* __restrict__ c, int T,
+                                         float* __restrict__ ll_out,
+                                         const ScanOut& out, Step&& step) {
   constexpr int RW = TRAJ ? kRingTraj : kRingLL;
-  constexpr bool kCsShared = ekf_consts_shared(RW + NY + NUB);
-  constexpr int CH = ekf_chunk(RW + NY + NUB, kCsShared ? NC * 4 : 0);
+  constexpr bool kCsShared = consts_shared(RW + NY + NUB);
+  constexpr int CH = scan_chunk(RW + NY + NUB, kCsShared ? NC * 4 : 0);
   __shared__ float sbuf[2][CH * (NY + NUB)];
   __shared__ float ring[2][CH * RW];
   const int tid = threadIdx.x, lane = tid & 31;
-  const bool producer = tid >= 32, worker = tid == 0;
+  const bool producer = tid >= 32, worker = tid < WORKERS;
   const int nch = (T + CH - 1) / CH;
 #if LLPF_NC <= 64
   float cs[NC];
@@ -252,22 +264,6 @@ __global__ void __launch_bounds__(64)
     for (int k = tid; k < LLPF_NC; k += 64) cs_smem[k] = c[k];
   const float* cs = kCsShared ? cs_smem : c;
 #endif
-  float x[NX], R[NX][NX], R1m[NX][NX], R2m[NY][NY];
-  if (worker) {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      x[i] = x0[i];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        R[i][j] = P0[i * NX + j];
-        R1m[i][j] = R1[i * NX + j];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NY; ++i)
-#pragma unroll
-      for (int j = 0; j < NY; ++j) R2m[i][j] = R2[i * NY + j];
-  }
   auto stage = [&](int ch) {
     const int t0 = ch * CH, tc = min(CH, T - t0);
     stage_rows(sbuf[ch & 1], ys, NY, t0, tc, lane, 32);
@@ -290,140 +286,9 @@ __global__ void __launch_bounds__(64)
     if (worker) {
       const float* b = sbuf[ch & 1];
       const int t0 = ch * CH, tc = min(CH, T - t0);
-      for (int s = 0; s < tc; ++s) {
-        const int64_t t = t0 + s;
-        const float* y = b + s * NY;
-        const float* u = b + CH * NY + s * NU;
-        float* r = ring[ch & 1] + s * RW;
-        const float tk = (float)t * Ts;
-        // ---- correct ------------------------------------------------------
-        float gv[NY + NY * NX];
-        cb_gvj(x, u, &tk, cs, gv);
-        const float* Cj = gv + NY;  // [NY][NX]
-        float CR[NY][NX], S[NY][NY], L[NY][NY], rd[NY], Kt[NY][NX], e[NY];
-#pragma unroll
-        for (int j = 0; j < NY; ++j)
-#pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            float a = 0.f;
-#pragma unroll
-            for (int q = 0; q < NX; ++q) a += Cj[j * NX + q] * R[q][i];
-            CR[j][i] = a;
-          }
-#pragma unroll
-        for (int i = 0; i < NY; ++i)
-#pragma unroll
-          for (int j = i; j < NY; ++j) {
-            float a = 0.f;
-#pragma unroll
-            for (int q = 0; q < NX; ++q) a += CR[i][q] * Cj[j * NX + q];
-            S[i][j] = S[j][i] = a + R2m[i][j];
-          }
-        // L = chol(S): one rsqrtf a diagonal entry, products elsewhere
-#pragma unroll
-        for (int i = 0; i < NY; ++i)
-#pragma unroll
-          for (int j = 0; j <= i; ++j) {
-            float a = S[i][j];
-#pragma unroll
-            for (int k = 0; k < j; ++k) a -= L[i][k] * L[j][k];
-            if (i == j) {
-              rd[i] = rsqrtf(a);
-              L[i][i] = a * rd[i];
-            } else {
-              L[i][j] = a * rd[j];
-            }
-          }
-        // K^T = S^{-1} C R: L^{-1} then L^{-T}, by the reciprocal diagonal
-#pragma unroll
-        for (int j = 0; j < NY; ++j)
-#pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            float a = CR[j][i];
-#pragma unroll
-            for (int k = 0; k < j; ++k) a -= L[j][k] * Kt[k][i];
-            Kt[j][i] = a * rd[j];
-          }
-#pragma unroll
-        for (int j = NY - 1; j >= 0; --j)
-#pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            float a = Kt[j][i];
-#pragma unroll
-            for (int k = j + 1; k < NY; ++k) a -= L[k][j] * Kt[k][i];
-            Kt[j][i] = a * rd[j];
-          }
-#pragma unroll
-        for (int j = 0; j < NY; ++j) {
-          e[j] = y[j] - gv[j];
-          r[j] = e[j];
-#pragma unroll
-          for (int k = 0; k <= j; ++k) r[kOffL + pk(j, k)] = L[j][k];
-        }
-        if (TRAJ) {
-#pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            r[kOffXp + i] = x[i];
-#pragma unroll
-            for (int j = 0; j <= i; ++j) r[kOffRp + pk(i, j)] = R[i][j];
-          }
-#pragma unroll
-          for (int i = 0; i < NY; ++i)
-#pragma unroll
-            for (int j = 0; j <= i; ++j) r[kOffS + pk(i, j)] = S[i][j];
-        }
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          float a = x[i];
-#pragma unroll
-          for (int j = 0; j < NY; ++j) a += e[j] * Kt[j][i];
-          x[i] = a;
-        }
-        // R - K C R, its upper triangle, mirrored
-#pragma unroll
-        for (int i = 0; i < NX; ++i)
-#pragma unroll
-          for (int j = i; j < NX; ++j) {
-            float a = 0.f;
-#pragma unroll
-            for (int q = 0; q < NY; ++q) a += Kt[q][i] * CR[q][j];
-            R[i][j] = R[j][i] = R[i][j] - a;
-          }
-        if (TRAJ) {
-#pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            r[kOffXt + i] = x[i];
-#pragma unroll
-            for (int j = 0; j <= i; ++j) r[kOffRt + pk(i, j)] = R[i][j];
-#pragma unroll
-            for (int j = 0; j < NY; ++j) r[kOffK + i * NY + j] = Kt[j][i];
-          }
-        }
-        // ---- predict ------------------------------------------------------
-        float fv[NX + NX * NX], AR[NX][NX];
-        cb_fvj(x, u, &tk, cs, fv);
-        const float* Aj = fv + NX;  // [NX][NX]
-#pragma unroll
-        for (int i = 0; i < NX; ++i)
-#pragma unroll
-          for (int j = 0; j < NX; ++j) {
-            float a = 0.f;
-#pragma unroll
-            for (int q = 0; q < NX; ++q) a += Aj[i * NX + q] * R[q][j];
-            AR[i][j] = a;
-          }
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-#pragma unroll
-          for (int j = i; j < NX; ++j) {
-            float a = 0.f;
-#pragma unroll
-            for (int q = 0; q < NX; ++q) a += AR[i][q] * Aj[j * NX + q];
-            R[i][j] = R[j][i] = alpha * a + R1m[i][j];
-          }
-          x[i] = fv[i];
-        }
-      }
+      for (int s = 0; s < tc; ++s)
+        step(b + s * NY, b + CH * NY + s * NU, t0 + s, cs,
+             ring[ch & 1] + s * RW, tid == 0);
     }
     __syncthreads();
   }
@@ -432,6 +297,116 @@ __global__ void __launch_bounds__(64)
     ll = warp_sum(ll);
     if (lane == 0) ll_out[0] = ll;
   }
+}
+
+#if defined(LLPF_EKF)
+// ---------------------------------------------------------------------------
+// kernel I: the EKF (ukf_scan.py:1183-1230)
+// ---------------------------------------------------------------------------
+
+// One thread runs the recursion: the value-and-Jacobian callbacks
+// (cb_gvj, cb_fvj: the Jacobians differentiated at code generation, or
+// the user's) and the algebra of run_scan's design note.
+template <bool TRAJ>
+__global__ void __launch_bounds__(64)
+    ekf_scan_kernel(const float* __restrict__ ys, const float* __restrict__ us,
+                    const float* __restrict__ x0, const float* __restrict__ P0,
+                    const float* __restrict__ R1, const float* __restrict__ R2,
+                    const float* __restrict__ c, float alpha, float Ts, int T,
+                    float* __restrict__ ll_out, ScanOut out) {
+  float x[NX], R[NX][NX], R1m[NX][NX], R2m[NY][NY];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      x[i] = x0[i];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        R[i][j] = P0[i * NX + j];
+        R1m[i][j] = R1[i * NX + j];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NY; ++i)
+#pragma unroll
+      for (int j = 0; j < NY; ++j) R2m[i][j] = R2[i * NY + j];
+  }
+  run_scan<TRAJ, 1>(ys, us, c, T, ll_out, out, [&](const float* y,
+                                                   const float* u, int t,
+                                                   const float* cs, float* r,
+                                                   bool) {
+    const float tk = (float)t * Ts;
+    // ---- correct ----------------------------------------------------------
+    float gv[NY + NY * NX];
+    cb_gvj(x, u, &tk, cs, gv);
+    const float* Cj = gv + NY;  // [NY][NX]
+    float CR[NY][NX], S[NY][NY], L[NY][NY], rd[NY], Kt[NY][NX], e[NY];
+#pragma unroll
+    for (int j = 0; j < NY; ++j)
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        float a = 0.f;
+#pragma unroll
+        for (int q = 0; q < NX; ++q) a += Cj[j * NX + q] * R[q][i];
+        CR[j][i] = a;
+        Kt[j][i] = a;
+      }
+#pragma unroll
+    for (int i = 0; i < NY; ++i)
+#pragma unroll
+      for (int j = i; j < NY; ++j) {
+        float a = 0.f;
+#pragma unroll
+        for (int q = 0; q < NX; ++q) a += CR[i][q] * Cj[j * NX + q];
+        S[i][j] = S[j][i] = a + R2m[i][j];
+      }
+    chol_rsqrt(S, L, rd);
+    gain_solve(L, rd, Kt);  // K^T = S^{-1} C R
+#pragma unroll
+    for (int j = 0; j < NY; ++j) e[j] = y[j] - gv[j];
+    ring_prior<TRAJ>(r, e, L, x, R, S);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      float a = x[i];
+#pragma unroll
+      for (int j = 0; j < NY; ++j) a += e[j] * Kt[j][i];
+      x[i] = a;
+    }
+    // R - K C R, its upper triangle, mirrored
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+#pragma unroll
+      for (int j = i; j < NX; ++j) {
+        float a = 0.f;
+#pragma unroll
+        for (int q = 0; q < NY; ++q) a += Kt[q][i] * CR[q][j];
+        R[i][j] = R[j][i] = R[i][j] - a;
+      }
+    if (TRAJ) ring_post(r, x, R, Kt);
+    // ---- predict ----------------------------------------------------------
+    float fv[NX + NX * NX], AR[NX][NX];
+    cb_fvj(x, u, &tk, cs, fv);
+    const float* Aj = fv + NX;  // [NX][NX]
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        float a = 0.f;
+#pragma unroll
+        for (int q = 0; q < NX; ++q) a += Aj[i * NX + q] * R[q][j];
+        AR[i][j] = a;
+      }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+#pragma unroll
+      for (int j = i; j < NX; ++j) {
+        float a = 0.f;
+#pragma unroll
+        for (int q = 0; q < NX; ++q) a += AR[i][q] * Aj[j * NX + q];
+        R[i][j] = R[j][i] = alpha * a + R1m[i][j];
+      }
+      x[i] = fv[i];
+    }
+  });
 }
 
 template <bool TRAJ>
@@ -450,38 +425,66 @@ int launch_ekf(const float* ys, const float* us, const float* x0,
 // kernel G: the additive-noise UKF (ukf_scan.py:503-567)
 // ---------------------------------------------------------------------------
 
-// this lane's sigma point of N(x, R): x, x + col_j of chol(W R), x - col_j
+constexpr int NSIG = 2 * NX + 1;
+// the sigma-point layout, chosen per filter at code generation
+// (kernels/ukf_scan.py::ukf_layout): 1, one thread evaluates every point,
+// so the UT moments are register sums; 32, lane k evaluates point k and
+// the UT moments are butterfly shuffles over the warp
+constexpr int kLanes = LLPF_UKF_LANES;
+static_assert(kLanes == 1 || (kLanes == 32 && NSIG <= 32), "UKF layout");
+constexpr int kPts = kLanes == 1 ? NSIG : 1;  // points a worker thread
+
+// sigma point k of N(x, L L^T): x; x + column k - 1 of L; x - column
+// k - 1 - NX; x for k >= NSIG (a lane past the last point, weight 0)
 __device__ __forceinline__ void sigma_point(const float (&x)[NX],
-                                            const float (&R)[NX][NX],
-                                            float Wsc, int lane,
+                                            const float (&L)[NX][NX], int k,
                                             float (&s)[NX]) {
-  float WR[NX][NX], L[NX][NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j)
-      WR[i][j] = 0.5f * (Wsc * R[i][j] + Wsc * R[j][i]);
-  chol_lower(WR, L, NX);
-  const int k = lane - 1;
-  const float sg = k < NX ? 1.f : -1.f;
-  const int col = k < NX ? k : k - NX;
+  const float sg = k <= NX ? 1.f : -1.f;
+  const int col = k <= NX ? k - 1 : k - 1 - NX;
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
     float d = 0.f;
 #pragma unroll
     for (int j = 0; j < NX; ++j) d = j == col ? L[i][j] : d;
-    s[i] = (lane >= 1 && lane < NSIG) ? x[i] + sg * d : x[i];
+    s[i] = (k >= 1 && k < NSIG) ? x[i] + sg * d : x[i];
   }
 }
 
-// every lane's copy of the N-vectors v of lanes 0..NSIG-1, row-major
+// sum of v(0..N-1), pairwise
+template <int N, class V>
+__device__ __forceinline__ float tree_sum(V v, int lo = 0) {
+  if constexpr (N == 1)
+    return v(lo);
+  else
+    return tree_sum<N / 2>(v, lo) + tree_sum<N - N / 2>(v, lo + N / 2);
+}
+
+// the UT sum w0 v(point 0) + wi sum_{k >= 1} v(point k), every worker
+// thread getting it: v(p) is the value at this thread's p-th point
+template <class V>
+__device__ __forceinline__ float ut_sum(V v, float w0, float wi, int lane) {
+  if constexpr (kLanes == 1) {
+    return w0 * v(0) +
+           wi * tree_sum<NSIG - 1>([&](int p) { return v(p + 1); });
+  } else {
+    return warp_sum((lane == 0 ? w0 : lane < NSIG ? wi : 0.f) * v(0));
+  }
+}
+
+// every point's N-vector, row-major [NSIG][N], for the mean hooks: the
+// thread's own array, or gathered from the lanes
 template <int N>
-__device__ __forceinline__ void gather(const float (&v)[N],
-                                       float (&all)[NSIG * N]) {
+__device__ __forceinline__ const float* all_points(const float (&v)[kPts][N],
+                                                   float (&buf)[NSIG * N]) {
+  if constexpr (kLanes == 1) {
+    return &v[0][0];
+  } else {
 #pragma unroll
-  for (int k = 0; k < NSIG; ++k)
+    for (int k = 0; k < NSIG; ++k)
 #pragma unroll
-    for (int j = 0; j < N; ++j) all[k * N + j] = __shfl_sync(kFull, v[j], k);
+      for (int j = 0; j < N; ++j) buf[k * N + j] = __shfl_sync(kFull, v[0][j], k);
+    return buf;
+  }
 }
 
 #if !LLPF_HOOK_MEAN
@@ -496,6 +499,31 @@ __device__ __forceinline__ void cb_inn(const float*, const float*,
                                        const float*, float*) {}
 #endif
 
+// the sigma points of N(x, Wsc R) owned by this thread (point p of lane
+// `lane`): Wsc R is symmetric as R is (mirrored everywhere)
+__device__ __forceinline__ void sigma_points(const float (&x)[NX],
+                                             const float (&R)[NX][NX],
+                                             float Wsc, int lane,
+                                             float (&sp)[kPts][NX]) {
+  float WR[NX][NX], L[NX][NX], rd[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j) WR[i][j] = Wsc * R[i][j];
+  chol_rsqrt(WR, L, rd);
+#pragma unroll
+  for (int p = 0; p < kPts; ++p) sigma_point(x, L, kLanes == 1 ? p : lane, sp[p]);
+}
+
+// Design: kLanes threads (1 or the warp) run the recursion; each owns
+// kPts sigma points and evaluates the callbacks on them as independent
+// instruction streams.  The factorizations and solves are computed by
+// every worker thread alike (nothing is broadcast).  Semantics of the
+// JAX kernel's step: correct (sigma points of N(x, R), UT mean and
+// covariances, S symmetrized plus R2, the gain by two triangular solves,
+// x + e K^T, R - K S K^T symmetrized), then predict (sigma points of the
+// posterior, UT mean, covariance symmetrized plus R1); the weights wm
+// (point 0) and wmi (the others) for means, wc and wci for covariances.
 template <bool TRAJ>
 __global__ void __launch_bounds__(64)
     ukf_scan_kernel(const float* __restrict__ ys, const float* __restrict__ us,
@@ -504,18 +532,9 @@ __global__ void __launch_bounds__(64)
                     const float* __restrict__ c, float wm, float wmi,
                     float wc, float wci, float Wsc, float Ts, int T,
                     float* __restrict__ ll_out, ScanOut out) {
-  __shared__ float sbuf[2][kChunk * (NY + NUB)];
-  const int tid = threadIdx.x;
-  const bool producer = tid >= 32, worker = tid < 32;
-  const int lane = tid & 31;
-  const bool active = lane < NSIG;
-  // weights of this lane's sigma point; 0 for lanes past the last point
-  const float wmean = active ? (lane == 0 ? wm : wmi) : 0.f;
-  const float wcov = active ? (lane == 0 ? wc : wci) : 0.f;
-  const int nch = (T + kChunk - 1) / kChunk;
+  const int lane = threadIdx.x & 31;
   float x[NX], R[NX][NX], R1m[NX][NX], R2m[NY][NY];
-  float ll = 0.f;
-  if (worker) {
+  if ((int)threadIdx.x < kLanes) {
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       x[i] = x0[i];
@@ -530,125 +549,115 @@ __global__ void __launch_bounds__(64)
 #pragma unroll
       for (int j = 0; j < NY; ++j) R2m[i][j] = R2[i * NY + j];
   }
-  if (producer && nch > 0) stage_chunk(sbuf[0], ys, us, 0, T, lane);
-  __syncthreads();
-  for (int ch = 0; ch < nch; ++ch) {
-    if (producer && ch + 1 < nch)
-      stage_chunk(sbuf[(ch + 1) & 1], ys, us, ch + 1, T, lane);
-    if (worker) {
-      const float* b = sbuf[ch & 1];
-      const int t0 = ch * kChunk, tc = min(kChunk, T - t0);
-      for (int s = 0; s < tc; ++s) {
-        const int64_t t = t0 + s;
-        const float* y = b + s * NY;
-        const float* u = b + kChunk * NY + s * NU;
-        const float tk = (float)t * Ts;
-        // ---- correct ------------------------------------------------------
-        float sp[NX], yv[NY], ym[NY];
-        sigma_point(x, R, Wsc, lane, sp);
-        cb_g(sp, u, &tk, c, yv);
-        if (LLPF_HOOK_MEAN) {
-          float all[NSIG * NY];
-          gather(yv, all);
-          cb_mean(all, c, ym);
-        } else {
+  run_scan<TRAJ, kLanes>(ys, us, c, T, ll_out, out, [&](const float* y,
+                                                        const float* u, int t,
+                                                        const float* cs,
+                                                        float* r, bool write) {
+    const float tk = (float)t * Ts;
+    // ---- correct ----------------------------------------------------------
+    float sp[kPts][NX], yv[kPts][NY], ym[NY];
+    sigma_points(x, R, Wsc, lane, sp);
 #pragma unroll
-          for (int j = 0; j < NY; ++j) ym[j] = warp_sum(wmean * yv[j]);
-        }
-        float dy[NY], dx[NX], S[NY][NY], L[NY][NY], Kt[NY][NX], e[NY];
+    for (int p = 0; p < kPts; ++p) cb_g(sp[p], u, &tk, cs, yv[p]);
+    if (LLPF_HOOK_MEAN) {
+      float buf[NSIG * NY];
+      cb_mean(all_points(yv, buf), cs, ym);
+    } else {
 #pragma unroll
-        for (int j = 0; j < NY; ++j) dy[j] = yv[j] - ym[j];
-#pragma unroll
-        for (int i = 0; i < NX; ++i) dx[i] = sp[i] - x[i];
-        {
-          float C2[NY][NY];
-#pragma unroll
-          for (int a = 0; a < NY; ++a)
-#pragma unroll
-            for (int q = 0; q < NY; ++q) C2[a][q] = warp_sum(dy[a] * wcov * dy[q]);
-#pragma unroll
-          for (int a = 0; a < NY; ++a)
-#pragma unroll
-            for (int q = 0; q < NY; ++q)
-              S[a][q] = 0.5f * (C2[a][q] + C2[q][a]) + R2m[a][q];
-        }
-        // K^T's right-hand side: the cross-covariance, transposed
-#pragma unroll
-        for (int i = 0; i < NX; ++i)
-#pragma unroll
-          for (int j = 0; j < NY; ++j) Kt[j][i] = warp_sum(dx[i] * wcov * dy[j]);
-        chol_lower(S, L, NY);
-        if (LLPF_HOOK_INN) {
-          cb_inn(y, ym, c, e);
-        } else {
-#pragma unroll
-          for (int j = 0; j < NY; ++j) e[j] = y[j] - ym[j];
-        }
-        float xp[NX], Rp[NX][NX];
-        if (TRAJ) {
-#pragma unroll
-          for (int i = 0; i < NX; ++i) xp[i] = x[i];
-          copy_mat(R, Rp);
-        }
-        ll += gain_and_ll(L, e, Kt, x);
-        {
-          float KS[NX][NY], KSK[NX][NX];
-#pragma unroll
-          for (int i = 0; i < NX; ++i)
-#pragma unroll
-            for (int q = 0; q < NY; ++q) {
-              float a = 0.f;
-#pragma unroll
-              for (int p = 0; p < NY; ++p) a += Kt[p][i] * S[p][q];
-              KS[i][q] = a;
-            }
-#pragma unroll
-          for (int i = 0; i < NX; ++i)
-#pragma unroll
-            for (int j = 0; j < NX; ++j) {
-              float a = 0.f;
-#pragma unroll
-              for (int q = 0; q < NY; ++q) a += KS[i][q] * Kt[q][j];
-              KSK[i][j] = R[i][j] - a;
-            }
-#pragma unroll
-          for (int i = 0; i < NX; ++i)
-#pragma unroll
-            for (int j = 0; j < NX; ++j)
-              R[i][j] = 0.5f * (KSK[i][j] + KSK[j][i]);
-        }
-        if (TRAJ && lane == 0) write_step(out, t, xp, Rp, x, R, e, S, Kt);
-        // ---- predict ------------------------------------------------------
-        float pv[NX], xn[NX];
-        sigma_point(x, R, Wsc, lane, sp);
-        cb_f(sp, u, &tk, c, pv);
-        if (LLPF_HOOK_SMEAN) {
-          float all[NSIG * NX];
-          gather(pv, all);
-          cb_smean(all, c, xn);
-        } else {
-#pragma unroll
-          for (int i = 0; i < NX; ++i) xn[i] = warp_sum(wmean * pv[i]);
-        }
-        float dp[NX], P2[NX][NX];
-#pragma unroll
-        for (int i = 0; i < NX; ++i) dp[i] = pv[i] - xn[i];
-#pragma unroll
-        for (int i = 0; i < NX; ++i)
-#pragma unroll
-          for (int j = 0; j < NX; ++j) P2[i][j] = warp_sum(dp[i] * wcov * dp[j]);
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-#pragma unroll
-          for (int j = 0; j < NX; ++j)
-            R[i][j] = 0.5f * (P2[i][j] + P2[j][i]) + R1m[i][j];
-          x[i] = xn[i];
-        }
-      }
+      for (int j = 0; j < NY; ++j)
+        ym[j] = ut_sum([&](int p) { return yv[p][j]; }, wm, wmi, lane);
     }
-    __syncthreads();
-  }
-  if (tid == 0) ll_out[0] = ll;
+    float dy[kPts][NY], dx[kPts][NX];
+#pragma unroll
+    for (int p = 0; p < kPts; ++p) {
+#pragma unroll
+      for (int j = 0; j < NY; ++j) dy[p][j] = yv[p][j] - ym[j];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) dx[p][i] = sp[p][i] - x[i];
+    }
+    // S: the UT covariance, symmetric by construction (upper triangle,
+    // mirrored), plus R2; K^T's right-hand side, the cross-covariance
+    // transposed
+    float S[NY][NY], L[NY][NY], rd[NY], Kt[NY][NX], e[NY];
+#pragma unroll
+    for (int a = 0; a < NY; ++a)
+#pragma unroll
+      for (int q = a; q < NY; ++q)
+        S[a][q] = S[q][a] =
+            ut_sum([&](int p) { return dy[p][a] * dy[p][q]; }, wc, wci, lane) +
+            R2m[a][q];
+#pragma unroll
+    for (int j = 0; j < NY; ++j)
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+        Kt[j][i] = ut_sum([&](int p) { return dx[p][i] * dy[p][j]; }, wc, wci,
+                          lane);
+    chol_rsqrt(S, L, rd);
+    if (LLPF_HOOK_INN) {
+      cb_inn(y, ym, cs, e);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NY; ++j) e[j] = y[j] - ym[j];
+    }
+    if (write) ring_prior<TRAJ>(r, e, L, x, R, S);
+    gain_solve(L, rd, Kt);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      float a = x[i];
+#pragma unroll
+      for (int j = 0; j < NY; ++j) a += e[j] * Kt[j][i];
+      x[i] = a;
+    }
+    // R - K S K^T, its upper triangle, mirrored
+    {
+      float KS[NX][NY];
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+#pragma unroll
+        for (int q = 0; q < NY; ++q) {
+          float a = 0.f;
+#pragma unroll
+          for (int p = 0; p < NY; ++p) a += Kt[p][i] * S[p][q];
+          KS[i][q] = a;
+        }
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+#pragma unroll
+        for (int j = i; j < NX; ++j) {
+          float a = 0.f;
+#pragma unroll
+          for (int q = 0; q < NY; ++q) a += KS[i][q] * Kt[q][j];
+          R[i][j] = R[j][i] = R[i][j] - a;
+        }
+    }
+    if (TRAJ && write) ring_post(r, x, R, Kt);
+    // ---- predict ----------------------------------------------------------
+    float pv[kPts][NX], xn[NX];
+    sigma_points(x, R, Wsc, lane, sp);
+#pragma unroll
+    for (int p = 0; p < kPts; ++p) cb_f(sp[p], u, &tk, cs, pv[p]);
+    if (LLPF_HOOK_SMEAN) {
+      float buf[NSIG * NX];
+      cb_smean(all_points(pv, buf), cs, xn);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+        xn[i] = ut_sum([&](int p) { return pv[p][i]; }, wm, wmi, lane);
+    }
+#pragma unroll
+    for (int p = 0; p < kPts; ++p)
+#pragma unroll
+      for (int i = 0; i < NX; ++i) pv[p][i] -= xn[i];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+#pragma unroll
+      for (int j = i; j < NX; ++j)
+        R[i][j] = R[j][i] =
+            ut_sum([&](int p) { return pv[p][i] * pv[p][j]; }, wc, wci, lane) +
+            R1m[i][j];
+      x[i] = xn[i];
+    }
+  });
 }
 
 template <bool TRAJ>

@@ -45,8 +45,10 @@ _SIGNATURES = {
     "llpf_add_gaussian_noise": [_P, _P, _P, _I64, _I, _U64, _U32, _P],
     "llpf_systematic_gather": [_P, _P, _P, _I64, _I, _I, _P],
     "llpf_systematic_index_gather": [_P, _P, _P, _P, _I64, _I, _I, _P],
-    "llpf_pf_scan_grid": [_I, _I, _P],
-    "llpf_pf_scan": [_P] * 27 + [_I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I,
+    "llpf_pf_scan_grid": [_I, _I, _I, _I, _P],
+    "llpf_grid_sync_probe": [_P, _I, _I, _I, _I, _P],
+    "llpf_pf_scan_scratch": [_I, _P, _P],
+    "llpf_pf_scan": [_P] * 24 + [_I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I,
                                  _I, _U64, _I, _P],
     "llpf_assoc_scan": [_P, _P, _P, _I64, _I64, _I, _I, _P],
     "llpf_assoc_scan_full": [_P, _P, _P, _I64, _I64, _I, _P],

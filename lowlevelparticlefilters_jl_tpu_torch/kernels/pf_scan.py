@@ -185,6 +185,21 @@ def _kernel_info(moments: int, segment: bool, dens) -> KernelInfo:
     return PF_LOGLIK_SCAN if dens is None else PF_DENSITY_SCAN
 
 
+def quantized_slots(weu: torch.Tensor, s1: torch.Tensor, r: torch.Tensor,
+                    N: int) -> torch.Tensor:
+    """Kernel A's systematic slot boundaries ``K [N]`` (int32) from the
+    unnormalized weights ``weu`` and their sum ``s1`` (f32): the weights
+    quantized to ``floor(we·2²⁴ + 0.5)``, their exact integer prefix C,
+    ``K = clip(ceil(C·(N / C_N) − r), 0, N)`` in f32; slot k takes
+    particle ``#{i : K_i <= k}`` (``resample_route.slot_sources``)."""
+    wi = torch.floor((weu / s1) * 16777216.0 + 0.5).to(torch.int64)
+    C = torch.cumsum(wi, 0)
+    scale = torch.tensor(float(N), dtype=torch.float32, device=weu.device) \
+        / C[-1].to(torch.float32)
+    return torch.ceil(C.to(torch.float32) * scale - r).clamp_(0, N).to(
+        torch.int32)
+
+
 def pf_scan_plain(y, coef, L1, mu1, L2inv, mu2, L0, mu0, *, N: int,
                   thresh: float, seed: int, noise: str = "philox",
                   x0: Optional[torch.Tensor] = None,
@@ -235,12 +250,7 @@ def pf_scan_plain(y, coef, L1, mu1, L2inv, mu2, L0, mu0, *, N: int,
         if not segment and (thresh >= 1.0 or bool(neff < thr_n)):
             r = (resample_offset_plain(seed, t, device=dev) if philox
                  else torch.tensor(0.5, device=dev))
-            wi = torch.floor((weu / s1) * 16777216.0 + 0.5).to(torch.int64)
-            C = torch.cumsum(wi, 0)
-            scale = torch.tensor(float(N), dtype=torch.float32, device=dev) \
-                / C[-1].to(torch.float32)
-            K = torch.ceil(C.to(torch.float32) * scale - r).clamp_(0, N)
-            x = x[slot_sources(K.to(torch.int32))]
+            x = x[slot_sources(quantized_slots(weu, s1, r, N))]
             w = torch.full_like(w, neg_log_n)
             nres += 1
         else:
@@ -258,6 +268,11 @@ def pf_scan_plain(y, coef, L1, mu1, L2inv, mu2, L0, mu0, *, N: int,
     if segment:
         out.update(x_fin=x, w_fin=w)
     return out
+
+
+#: phases of a step that :func:`pf_scan_phase_cycles` reports
+PHASES = ("record", "exchange sync", "combine", "moments",
+          "resample scan", "resample sync", "gather", "predict+weight")
 
 
 def pf_scan(y, coef, L1, mu1, L2inv, mu2, L0, mu0, *, N: int, thresh: float,
@@ -284,6 +299,23 @@ def pf_scan(y, coef, L1, mu1, L2inv, mu2, L0, mu0, *, N: int, thresh: float,
               dens=dens, moments=moments, segment=segment)
     if not y.is_cuda:
         return pf_scan_plain(y, coef, L1, mu1, L2inv, mu2, L0, mu0, **kw)
+    return _launch(y, coef, L1, mu1, L2inv, mu2, L0, mu0, **kw)
+
+
+def pf_scan_phase_cycles(*args, **kw) -> dict:
+    """One launch of kernel A (the arguments of :func:`pf_scan`, CUDA
+    tensors) with block 0's phase clock on: ``{phase: SM cycles summed
+    over the steps}`` for :data:`PHASES`, with the ``grid``.  A
+    measurement for ``scripts/torch_kernel_probe.py``; the launch counts
+    as kernel A's."""
+    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=args[0].device)
+    out = _launch(*args, prof=prof, **kw)
+    return dict(zip(PHASES, prof.tolist()), grid=out["grid"])
+
+
+def _launch(y, coef, L1, mu1, L2inv, mu2, L0, mu0, *, N, thresh, seed,
+            noise="philox", x0=None, w0=None, dens=None, moments=0,
+            segment=False, prof=None) -> dict:
     T, ny = y.shape
     nx = L1.shape[0]
     if not (1 <= nx <= MAX_DIM and 1 <= ny <= MAX_DIM):
@@ -307,26 +339,26 @@ def pf_scan(y, coef, L1, mu1, L2inv, mu2, L0, mu0, *, N: int, thresh: float,
     cst, thr_n, neg_log_n = _scalars(L2inv, N, thresh)
     mode = (1 if moments else 0) | (2 if dens is not None else 0)
     lib = library().lib
-    grid = torch.zeros(1, dtype=torch.int32)
-    check(lib.llpf_pf_scan_grid(N, mode, grid.data_ptr()), "pf_scan grid")
-    G = int(grid[0])
+    ints = torch.zeros(3, dtype=torch.int32)
+    check(lib.llpf_pf_scan_grid(N, mode, nx, ny, ints.data_ptr()),
+          "pf_scan grid")
+    G = int(ints[0])
+    check(lib.llpf_pf_scan_scratch(G, ints[1:].data_ptr(),
+                                   ints[2:].data_ptr()), "pf_scan scratch")
     dev = y.device
     f32 = dict(dtype=torch.float32, device=dev)
     xa = torch.empty(nx * N, **f32)
     xb = torch.empty_like(xa)
     w = torch.empty(N, **f32)
-    weu = torch.empty_like(w)
     kbuf = torch.empty(N, dtype=torch.int32, device=dev)
-    part = torch.empty(3, G, **f32)
-    pint = torch.empty(G, dtype=torch.int32, device=dev)
+    part = torch.empty(int(ints[1]), **f32)
+    ptot = torch.empty(int(ints[2]), dtype=torch.int32, device=dev)
     res = torch.empty(2, **f32)
     out = {}
     if moments:
         out["means"] = torch.empty(T, nx, **f32)
     if moments == 2:
         out["covs"] = torch.empty(T, nx, nx, **f32)
-    pmom = (torch.empty(nx + nx * (nx + 1) // 2, G, **f32) if moments
-            else None)
     if segment:
         out.update(x_fin=torch.empty(N, nx, **f32), w_fin=torch.empty(N, **f32))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -334,15 +366,16 @@ def pf_scan(y, coef, L1, mu1, L2inv, mu2, L0, mu0, *, N: int, thresh: float,
         y.data_ptr(), coef.data_ptr(), L1.data_ptr(), mu1.data_ptr(),
         L2inv.data_ptr(), mu2.data_ptr(), L0.data_ptr(), mu0.data_ptr(),
         ptr(x0), ptr(w0), *(ptr(t) for t in (dens or (None, None))),
-        xa.data_ptr(), xb.data_ptr(), w.data_ptr(), weu.data_ptr(),
-        kbuf.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-        part[2].data_ptr(), pint.data_ptr(), ptr(pmom), res.data_ptr(),
+        xa.data_ptr(), xb.data_ptr(), w.data_ptr(), kbuf.data_ptr(),
+        part.data_ptr(), ptot.data_ptr(), res.data_ptr(),
         ptr(out.get("means")), ptr(out.get("covs")), ptr(out.get("x_fin")),
-        ptr(out.get("w_fin")), T, N, nx, ny, cst, thr_n, neg_log_n,
-        int(thresh >= 1.0), int(noise == "philox"), int(segment),
+        ptr(out.get("w_fin")), ptr(prof), T, N, nx, ny, cst, thr_n,
+        neg_log_n, int(thresh >= 1.0), int(noise == "philox"), int(segment),
         int(moments == 2), mode, int(seed) & (2**64 - 1), G,
         stream_ptr(y)), "pf_scan")
     _kernel_info(moments, segment, dens).launches += 1
+    if prof is not None:
+        out["grid"] = G
     return dict(ll=res[0], nres=res[1], **out)
 
 

@@ -356,6 +356,7 @@ class Compiled:
     trace_seconds: float
     build_seconds: float = 0.0
     lib: object = field(default=None, repr=False)
+    layout: str = ""               # G's sigma-point layout (ukf_layout)
 
     def source(self) -> str:
         names = {name for name, _ in self.progs}
@@ -365,6 +366,9 @@ class Compiled:
                  f"#define LLPF_NX {self.nx}", f"#define LLPF_NY {self.ny}",
                  f"#define LLPF_NU {self.nu}",
                  f"#define LLPF_NC {sum(p.n_consts for _, p in self.progs)}"]
+        if self.kind == "UKF":
+            lanes = 1 if self.layout == "thread" else 32
+            lines.append(f"#define LLPF_UKF_LANES {lanes}")
         for name, switch in (("cb_inn", "HOOK_INN"), ("cb_mean", "HOOK_MEAN"),
                              ("cb_smean", "HOOK_SMEAN")):
             lines.append(f"#define LLPF_{switch} {int(name in names)}")
@@ -452,8 +456,24 @@ def _ekf_programs(ekf, nu: int, device) -> Optional[Compiled]:
     return _cached(ekf, ("EKF", nu, str(device)), make)
 
 
+#: the largest nx whose 2 nx + 1 sigma points kernel G evaluates on one
+#: thread: faster than the warp layout at nx = 2 and 4, far slower at 8
+#: (register spills), on the H100 (PERF.md)
+UKF_THREAD_MAX_NX = 4
+
+
+def ukf_layout(nx: int) -> str:
+    """Kernel G's sigma-point layout for ``nx`` states: ``"thread"``, one
+    thread evaluates every point and the UT moments are register sums,
+    for nx <= :data:`UKF_THREAD_MAX_NX`; else ``"warp"``, lane k evaluates
+    point k and the moments are shuffle butterflies (fewer registers a
+    thread at 17 points)."""
+    return "thread" if nx <= UKF_THREAD_MAX_NX else "warp"
+
+
 def _ukf_programs(ukf, nu: int, device) -> Optional[Compiled]:
-    """Kernel G's lowered callbacks (f, g and the UT hooks)."""
+    """Kernel G's lowered callbacks (f, g and the UT hooks), with the
+    sigma-point layout of :func:`ukf_layout`."""
     def make():
         t0 = time.perf_counter()
         mm, p, nx, ny = ukf.measurement_model, ukf.p, ukf.nx, ukf.ny
@@ -477,7 +497,8 @@ def _ukf_programs(ukf, nu: int, device) -> Optional[Compiled]:
                           (z(nsig, nx),), "f", (nx,)))
         progs = _lower_all(specs)
         return None if progs is None else Compiled(
-            "UKF", nx, ny, nu, progs, time.perf_counter() - t0)
+            "UKF", nx, ny, nu, progs, time.perf_counter() - t0,
+            layout=ukf_layout(nx))
     return _cached(ukf, ("UKF", nu, str(device)), make)
 
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Probe kernels C (normal draws) and G, H, I (whole scans) on the card:
-device time against host time, and the compiled step loops.
+"""Probe kernels C (normal draws), G, H, I (whole scans) and A (the
+bootstrap PF in one launch) on the card: device time against host time,
+the compiled step loops, A's time a step and the cost of a grid sync.
 
-    python3 scripts/torch_kernel_probe.py [noise] [scan] [--out DIR]
+    python3 scripts/torch_kernel_probe.py [noise] [scan] [pf] [sync] [--out DIR]
 
-Needs one CUDA card.  Runs the named sections (both without arguments).
+Needs one CUDA card.  Runs the named sections (all without arguments).
 It reads the kernels of the checkout it lies in, so a copy of it in
 another checkout (the parent commit, with ``kernels/sass.py`` copied
 beside its kernels for ``scan``) measures that tree: run both in one call
@@ -25,6 +26,18 @@ tree only, and reads neither G's nor H's step loop.
   loads from device and local memory, the dependent chain; I and G,
   whose callbacks build a library of their own).  The SASS goes to
   ``DIR`` (default ``probe_out/`` in the checkout, gitignored), gzipped.
+  G also at nx = 8 (17 sigma points) on ``nx8_ukf`` below;
+- ``pf``: kernel A on the benchmark's 2-state model (bench.py:389-402)
+  at N = 1e5, T = 1000: loglik mode at Neff thresholds 0.1 (the main
+  path), 0 (never resamples) and 1 (always), so a step's cost splits into
+  the step without a resample and the resample's own; the moments (means
+  and covariances), segment and scalar-density modes at 0.1; N = 1e6,
+  T = 200 at 0.1; the grid of each launch.  Mean ms a call by CUDA events
+  over 5 calls, and microseconds a step;
+- ``sync``: a kernel of empty ``grid.sync()`` rounds (and rounds that
+  also read every block's partial, as A's grid-wide sums do) at A's grids
+  at N = 1e5 and 1e6 and at 132 x 1024: microseconds a sync, A's sync
+  floor.  Needs ``llpf_grid_sync_probe`` (this tree's ``csrc/pf_scan.cu``).
 
 Prints one line per measurement and, last, the card's ``nvidia-smi`` name
 and power limit.
@@ -182,6 +195,145 @@ def scan_section(dev, out: Path):
     mhz, ms = clock_while(lambda: k.akf_scan(*hin))
     print(f"scan H T={T}: {ms:.3f} ms a call by CUDA events, SM clock {mhz} "
           f"MHz, {ms * 1e-3 * mhz * 1e6 / T:.0f} cycles a step", flush=True)
+    if hasattr(k, "ukf_layout"):
+        ukf_layouts(dev, out, T, yq, y)
+
+
+def ukf_layouts(dev, out: Path, T, yq, y):
+    """Kernel G in both sigma-point layouts (kernels/ukf_scan.ukf_layout)
+    at nx = 2 (quadtank), 4 (the CV UKF) and 8 (``chip_smoke.nx8_ukf``),
+    the trajectory off: ms a call, cycles a step, the step loop."""
+    import chip_smoke as cs
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import sass
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import ukf_scan as k
+
+    y4 = torch.randn(T, 4, generator=torch.Generator().manual_seed(91))
+    keep = k.UKF_THREAD_MAX_NX
+    try:
+        for nx, make, ys in ((2, cs.quadtank_ukf, yq), (4, cs.cv_ukf, y),
+                             (8, cs.nx8_ukf, y4.to(dev))):
+            for layout in ("thread", "warp"):
+                k.UKF_THREAD_MAX_NX = 8 if layout == "thread" else 0
+                f = make(dev, torch.float32)  # a new filter: a new build
+                comp = k._ukf_programs(f, 0, dev)
+                text = sass.disassemble(comp.library()._name)
+                name = f"G_nx{nx}_{layout}.sass.gz"
+                with gzip.open(out / name, "wt") as fh:
+                    fh.write(text)
+                mhz, ms = clock_while(lambda: k.ukf_scan(f, ys))
+                try:
+                    loop = sass.step_loop(text, "ukf_scan_kernel", False)
+                except Exception as exc:  # the listing is saved beside
+                    loop = f"not read: {exc!r}"
+                print(f"G layout nx={nx} {layout} T={T}: {ms:.3f} ms a call "
+                      f"by CUDA events, SM clock {mhz} MHz, "
+                      f"{ms * 1e-3 * mhz * 1e6 / T:.0f} cycles a step; step "
+                      f"loop {loop}", flush=True)
+    finally:
+        k.UKF_THREAD_MAX_NX = keep
+
+
+def pf_section(dev):
+    """Kernel A's modes on the benchmark's model (see the module doc)."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch import convert
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import pf_scan
+
+    A = [[0.97043, -0.097368], [0.097368, 0.970437]]
+    B, C = [[0.1], [0.0]], [[1.0, 0.0], [0.0, 1.0]]
+    R1, R2 = [[0.01, 0.0], [0.0, 0.01]], [[0.1, 0.0], [0.0, 0.1]]
+    kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, device="cpu")
+
+    def case(N, T, thresh, seed=1, dens=False):
+        u = torch.full((T, 1), 0.3, dtype=torch.float64)
+        _, u, y = llpt.simulate(kf, u, torch.Generator().manual_seed(seed))
+        f, g = convert.linear_callbacks(A, B, C, device=dev)
+        pf = convert.particle_filter_from_numpy(
+            N, f, g, R1, R2, R1, resample_threshold=thresh, device=dev)
+        if dens:
+            pf = pf.replace(measurement_density=llpt.TupleProduct(
+                [llpt.StudentT(4.0, 0.0, 0.3), llpt.Laplace(0.0, 0.25)]))
+        args = pf_scan.scan_inputs(pf, u.float().to(dev), y.float().to(dev))
+        return args, dict(N=N, thresh=thresh, seed=0,
+                          dens=pf_scan.scan_density(pf, dev))
+
+    def run(tag, args, kw, T, N):
+        out = pf_scan.pf_scan(*args, **kw)
+        ms = events_ms(lambda: pf_scan.pf_scan(*args, **kw), 5)
+        line = (f"pf {tag} N={N} T={T}: {ms:.4f} ms a call by CUDA events "
+                f"(5 calls), {ms * 1e3 / T:.3f} us a step; resamples "
+                f"{float(out['nres']):g}; ll {float(out['ll']):.6g}")
+        if hasattr(pf_scan, "pf_scan_phase_cycles"):
+            ph = pf_scan.pf_scan_phase_cycles(*args, **kw)
+            grid = ph.pop("grid")
+            tot = sum(ph.values())
+            line += (f"; grid {grid} x 512; block 0's cycles a step by "
+                     "phase " + ", ".join(f"{k} {v / T:.0f}"
+                                          for k, v in ph.items())
+                     + f" (sum {tot / T:.0f})")
+        print(line, flush=True)
+        return ms
+
+    import re
+
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import _lib
+
+    name = None  # ptxas lines of the build, when this process built it
+    for line in _lib.library().log.splitlines():
+        m = re.search(r"Compiling entry function '(\S*pf_scan_kernel\S*)'",
+                      line)
+        if m:
+            name = m.group(1)
+        if name and ("spill" in line or "Used" in line):
+            print(f"pf build {name}: {line.strip()}", flush=True)
+            name = None if "Used" in line else name
+    N, T = 100_000, 1000
+    ms = {}
+    for thresh in (0.1, 0.0, 1.0):
+        args, kw = case(N, T, thresh)
+        ms[thresh] = run(f"loglik thresh={thresh}", args, kw, T, N)
+    args, kw = case(N, T, 0.1)
+    run("moments=1", args, dict(kw, moments=1), T, N)
+    run("moments=2", args, dict(kw, moments=2), T, N)
+    x0 = torch.randn(N, 2, generator=torch.Generator().manual_seed(3)
+                     ).to(dev)
+    w0 = torch.full((N,), -math.log(N), device=dev)
+    run("segment", args, dict(kw, x0=x0, w0=w0, segment=True), T, N)
+    argsd, kwd = case(N, T, 0.1, dens=True)
+    run("density", argsd, kwd, T, N)
+    print(f"pf split N={N} T={T}: a step without a resample "
+          f"{ms[0.0] * 1e3 / T:.3f} us, with one {ms[1.0] * 1e3 / T:.3f} us "
+          f"(the resample's own {(ms[1.0] - ms[0.0]) * 1e3 / T:.3f} us)",
+          flush=True)
+    args6, kw6 = case(1_000_000, 200, 0.1, seed=6)
+    run("loglik thresh=0.1", args6, kw6, 200, 1_000_000)
+
+
+def sync_section(dev):
+    """Microseconds a grid.sync() (and a sync with its partial read) at
+    kernel A's grids and at 132 x 1024 (see the module doc)."""
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import _lib
+
+    lib = _lib.library().lib
+    out = torch.zeros(1, dtype=torch.int32)
+    shapes = []
+    for N in (100_000, 1_000_000):
+        _lib.check(lib.llpf_pf_scan_grid(N, 0, 2, 2, out.data_ptr()), "grid")
+        shapes.append((f"A's grid at N={N}, nx = ny = 2", int(out[0]), 512))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes += [("391 x 256 (256-thread blocks at N=1e5)", 391, 256),
+               (f"{sms} x 1024", sms, 1024)]
+    iters = 20_000
+    for tag, G, threads in shapes:
+        part = torch.zeros(2 * G, device=dev)
+        for reads in (0, 1):
+            def call():
+                _lib.check(lib.llpf_grid_sync_probe(
+                    part.data_ptr(), G, threads, iters, reads,
+                    _lib.stream_ptr(part)), "grid_sync_probe")
+            us = events_ms(call, 3) * 1e3 / iters
+            print(f"sync {tag} ({G} x {threads}), partial read {reads}: "
+                  f"{us:.4f} us a round", flush=True)
 
 
 def main():
@@ -197,12 +349,16 @@ def main():
         k = args.index("--out")
         out = Path(args[k + 1])
         del args[k:k + 2]
-    sections = set(args) or {"noise", "scan"}
+    sections = set(args) or {"noise", "scan", "pf", "sync"}
     print(f"clocks: {smi('clocks.sm,clocks.max.sm')}", flush=True)
     if "noise" in sections:
         noise_section(dev)
     if "scan" in sections:
         scan_section(dev, out)
+    if "pf" in sections:
+        pf_section(dev)
+    if "sync" in sections:
+        sync_section(dev)
 
     print(smi("name,power.limit"), flush=True)
     return 0

@@ -182,13 +182,54 @@ def test_ekf_source_keeps_constants_out_of_the_step_loop():
     assert len(comp.progs[1][1].instrs) == len(g.instrs)
     cuh = (Path(ukf_scan.__file__).parent.parent / "csrc"
            / "ukf_scan.cuh").read_text()
+    # the step (the body run_scan calls each step) reads the copy `cs`
     kernel = cuh[cuh.index("ekf_scan_kernel("):cuh.index("int launch_ekf(")]
-    loop = kernel[kernel.index("for (int s = 0; s < tc; ++s)"):]
-    assert "cb_gvj(x, u, &tk, cs, gv)" in loop
-    assert "cb_fvj(x, u, &tk, cs, fv)" in loop
-    assert re.search(r"\bc\[", loop) is None
-    assert re.search(r"cs\[k\] = c\[k\]", kernel[:kernel.index(
-        "for (int s = 0; s < tc; ++s)")])
+    step = kernel[kernel.index("run_scan<"):]
+    assert "cb_gvj(x, u, &tk, cs, gv)" in step
+    assert "cb_fvj(x, u, &tk, cs, fv)" in step
+    assert re.search(r"\bc\[", step) is None
+    # the frame loads the copy before its step loop and hands it on
+    frame = cuh[cuh.index("void run_scan("):cuh.index("kernel I: the EKF")]
+    loop = frame.index("for (int s = 0; s < tc; ++s)")
+    assert re.search(r"cs\[k\] = c\[k\]", frame[:loop])
+    assert re.search(r"step\([^;]*\bcs\b", frame[loop:])
+
+
+def test_ukf_source_sigma_point_layout():
+    """Kernel G's generated source: up to nx = 4 one thread evaluates every
+    sigma point (``LLPF_UKF_LANES 1``: the UT moments are register sums),
+    beyond that lane k evaluates point k (32); the mean hooks are lowered
+    over every point, [2 nx + 1, n] (the thread's own array, or gathered
+    from the lanes), and the innovation hook over y and the mean."""
+    def source(nx, hooks=False):
+        def smean(xs, W_):
+            return (xs * W_.wmi).sum(0) + (W_.wm - W_.wmi) * xs[0]
+
+        mm = llpt.UKFMeasurementModel(
+            measurement=lambda x, u, p, t: x[:2] ** 2, R2=torch.eye(2),
+            ny=2, mean=(lambda ys, W_: ys.mean(0)) if hooks else None,
+            innovation=(lambda y, yh: _wrap(y - yh)) if hooks else None)
+        ukf = llpt.UnscentedKalmanFilter(
+            dynamics=lambda x, u, p, t: x + 0.1 * torch.sin(x),
+            measurement_model=mm, R1=0.01 * torch.eye(nx), nu=0,
+            state_mean=smean if hooks else None)
+        return ukf_scan._ukf_programs(ukf, 0, torch.device("cpu"))
+
+    for nx in range(2, 9):
+        comp = source(nx)
+        lanes = 1 if nx <= ukf_scan.UKF_THREAD_MAX_NX else 32
+        assert comp.layout == ukf_scan.ukf_layout(nx)
+        assert f"#define LLPF_UKF_LANES {lanes}\n" in comp.source()
+    assert ukf_scan.ukf_layout(2) == "thread"
+    assert ukf_scan.ukf_layout(8) == "warp"
+    comp = source(3, hooks=True)
+    progs = dict(comp.progs)
+    assert progs["cb_mean"].inputs[0][0] == (7, 2)
+    assert progs["cb_smean"].inputs[0][0] == (7, 3)
+    assert [s for s, _ in progs["cb_inn"].inputs] == [(2,), (2,)]
+    src = comp.source()
+    for hook in ("HOOK_MEAN", "HOOK_SMEAN", "HOOK_INN"):
+        assert f"#define LLPF_{hook} 1\n" in src
 
 
 def test_user_jacobian_program_concatenates():

@@ -132,6 +132,63 @@ def test_pf_kernel_resampling_is_exact(cuda_device):
     assert float(llk) == float(llp)
 
 
+@pytest.mark.parametrize("N", [100, 1000, 100_003, 1_000_000])
+def test_pf_kernel_sizes_match_twin(cuda_device, N):
+    """Kernel A below one block of particles, at N not a multiple of the
+    block, and at N = 1e6, against its twin: never resampling (no noise;
+    the sums in another order, rtol 1e-5), always resampling with a
+    state-free measurement (the identity selection, rtol 1e-5), each with
+    its resample count exact; and the lattice case, ll exactly equal."""
+    T = 50
+    _, u, y = _data(T)
+    uc, yc = u.float().to(cuda_device), y.float().to(cuda_device)
+    x0 = torch.randn(N, 2, generator=torch.Generator().manual_seed(0)
+                     ).to(cuda_device)
+    for thresh, C_, nres in ((0.0, C, 0.0), (1.0, np.zeros((2, 2)), T)):
+        pf = _model(N, cuda_device, threshold=thresh, C_=C_)
+        args = pf_scan.scan_inputs(pf, uc, yc)
+        kw = dict(N=N, thresh=thresh, seed=0, noise="none", x0=x0)
+        llk, nk = pf_scan.pf_loglik_scan(*args, **kw)
+        llp, npl = pf_scan.pf_loglik_scan_plain(*args, **kw)
+        assert float(nk) == float(npl) == nres
+        np.testing.assert_allclose(float(llk), float(llp), rtol=1e-5)
+    pf, u4, y4, x04 = lattice_case(N, T, device=cuda_device)
+    args = pf_scan.scan_inputs(pf, u4, y4)
+    kw = dict(N=N, thresh=float(pf.resample_threshold), seed=0,
+              noise="none", x0=x04)
+    llk, nk = pf_scan.pf_loglik_scan(*args, **kw)
+    llp, npl = pf_scan.pf_loglik_scan_plain(*args, **kw)
+    assert float(nk) == float(npl) and float(llk) == float(llp)
+
+
+@pytest.mark.parametrize("mode", ["loglik", "moments", "segment", "density"])
+def test_pf_kernel_seeded_calls_bitwise_equal(cuda_device, mode):
+    """Two seeded calls of each of kernel A's modes give the same bits,
+    resampling included (Philox noise, threshold 0.1; every grid-wide sum
+    in one fixed order)."""
+    N, T = 100_000, 200
+    pf = _model(N, cuda_device)
+    if mode == "density":
+        pf = pf.replace(measurement_density=llpt.TupleProduct(
+            [llpt.StudentT(4.0, 0.0, 0.35), llpt.Laplace(0.0, 0.25)]))
+    _, u, y = _data(T)
+    args = pf_scan.scan_inputs(pf, u.float().to(cuda_device),
+                               y.float().to(cuda_device))
+    kw = dict(N=N, thresh=0.1, seed=5, dens=pf_scan.scan_density(
+        pf, cuda_device))
+    if mode == "moments":
+        kw["moments"] = 2
+    if mode == "segment":
+        g = torch.Generator().manual_seed(2)
+        kw.update(segment=True, x0=torch.randn(N, 2, generator=g).to(
+            cuda_device), w0=torch.randn(N, generator=g).to(cuda_device))
+    one, two = (pf_scan.pf_scan(*args, **kw) for _ in range(2))
+    assert mode == "segment" or float(one["nres"]) >= 1
+    assert one.keys() == two.keys()
+    for name in one:
+        assert torch.equal(one[name], two[name]), name
+
+
 def test_main_path_on_card(cuda_device):
     pf = _model(100_000, cuda_device)
     kf, u, y = _data(200)
@@ -462,6 +519,48 @@ def test_ukf_kernel_matches_twin(cuda_device, case):
         got = ukf_scan.ukf_scan(ukf, ys, traj=traj)
         assert ukf_scan.UKF_SCAN.launches == before + 1
         _close_solution(got, ukf_scan.ukf_scan_plain(ukf, ys, traj=traj))
+
+
+def _nx8_ukf(dev):
+    """8 states, 17 sigma points: x' = A8 x + 0.01 sin x, y = x[:4]."""
+    A8 = 0.95 * torch.eye(8, device=dev) + 0.05 * torch.roll(
+        torch.eye(8, device=dev), 1, 0)
+    return llpt.make_ukf(lambda x, u, p, t: A8 @ x + 0.01 * torch.sin(x),
+                         lambda x, u, p, t: x[:4],
+                         0.01 * torch.eye(8, device=dev),
+                         0.1 * torch.eye(4, device=dev), ny=4, nu=0)
+
+
+@pytest.mark.parametrize("layout", ["default", "thread", "warp"])
+def test_ukf_kernel_nx8_matches_twin(cuda_device, layout, monkeypatch):
+    """Kernel G at nx = 8 (17 sigma points) against its twin, with and
+    without the trajectory, in its default layout and forced into each
+    (``ukf_scan.ukf_layout``)."""
+    if layout != "default":
+        monkeypatch.setattr(ukf_scan, "UKF_THREAD_MAX_NX",
+                            8 if layout == "thread" else 0)
+    ukf = _nx8_ukf(cuda_device)
+    assert ukf_scan._ukf_programs(ukf, 0, cuda_device).layout == (
+        ukf_scan.ukf_layout(8) if layout == "default" else layout)
+    ys = torch.randn(300, 4, generator=torch.Generator().manual_seed(8)
+                     ).to(cuda_device)
+    for traj in (False, True):
+        _close_solution(ukf_scan.ukf_scan(ukf, ys, traj=traj),
+                        ukf_scan.ukf_scan_plain(ukf, ys, traj=traj))
+
+
+def test_ukf_step_loop_reads_no_device_memory(cuda_device):
+    """Kernel G's compiled step loop (quadtank, one thread for the five
+    sigma points) loads nothing from device memory and shuffles nothing on
+    its hot path."""
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import sass
+
+    lib = ukf_scan._ukf_programs(_quadtank(cuda_device), 0,
+                                 cuda_device).library()
+    text = sass.disassemble(lib._name)
+    for traj in (False, True):
+        loop = sass.step_loop(text, "ukf_scan_kernel", traj)
+        assert loop.get("LDG", 0) == 0 and loop.get("SHFL", 0) == 0, loop
 
 
 def test_generated_kernel_second_call_builds_nothing(cuda_device):
