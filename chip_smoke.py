@@ -13,14 +13,18 @@ exits non-zero without its result lines):
    Kernel C also against ``torch.randn`` at 2e5 and 2e6 normals: the
    mean of 50 back-to-back calls by CUDA events (every kernel's clock),
    the median (and the least) of 20 runs of 100 calls each, in turns, and
-   the profiler's device time of each.
+   the profiler's device time of each.  Kernel D in both forms (the
+   benchmark's dynamics compiled in, and ``f(x)`` from PyTorch) at
+   N = 1e5: CUDA-event and device time, the build apart.
 4. main path: the benchmark's 2-state model (bench.py:389-402) at
    N = 1e5, T = 1000, Neff threshold 0.1, through ``pf.loglik`` on CUDA
    tensors: kernel A, PF ll within 1 % of the exact KF ll; median time of
    5 calls.  Then N = 1e6, T = 200 with the same check.
 5. unfused path: ``pf.forward_trajectory`` at N = 1e5, T = 100 with
    ``noise_backend="kernel"`` (kernels B, C, D), within 1 % of the KF;
-   a second seeded call bitwise equal to the first.
+   a second seeded call bitwise equal to the first; D's compiled form on
+   the predict route; launches and host synchronizations a step
+   (``torch.profiler``).
 6. the KF bank, ``kf_bank_loglik`` on the benchmark's bank model
    (bench.py:423-469): kernel F against its twin at B = 1024, T = 200;
    the route and one launch each of kernels K and F per call at B = 1024
@@ -34,7 +38,8 @@ exits non-zero without its result lines):
    ``kf.loglik_fused``, ``loglik(kf, method="fused")``,
    ``kf.forward_trajectory_fused`` and the affine CV UKF's
    ``ukf_loglik_fused`` (H, not G); H against its twin at T = 2000 and
-   the ll against the float64 CPU sequential KF at T = 5000.
+   the ll against the float64 CPU sequential KF at T = 5000 and 5e4; the
+   freeze step and the prefix and tail cycles H reports (``clock64``).
 9. kernel I on ``A x + 0.01 sin x`` (tests/test_ukf_fused.py:88-98),
    T = 5e4: ``loglik`` under "auto", ``forward_trajectory`` with
    ``method="fused"``, and a case with user Jacobians; I against its twin
@@ -57,7 +62,8 @@ exits non-zero without its result lines):
    through B, C, D; one launch of kernel J a call); the smoothed mean
    within ``FFBS_RMS_Z`` RTS deviations of the float64 exact smoother; J
    against its twin on a fixed forward solution, MAP columns equal and
-   the Philox draws within 0.1 %; J's CUDA-event time, median of 5 calls.
+   the Philox draws within 0.1 %; J's CUDA-event time, median of 5 calls;
+   launches and host synchronizations a step of the N = 1000 call.
 12. the RTS family: ``smooth`` of the KF at T = 1e5
    (``parallel_rts_smooth``), of the CV UKF, the quadtank UKF and the
    ``A x + 0.01 sin x`` EKF at T = 5e4 (the iterated parallel smoothers on
@@ -178,6 +184,31 @@ def device_ms(fn, name, reps=20):
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA and name in e.name)
     return us / 1e3 / reps if us > 0 else None
+
+
+def step_profile(fn, T):
+    """Launches (device kernels) and host synchronizations a step of one
+    call of ``fn`` over T steps, by ``torch.profiler`` after a warm-up:
+    ``cudaStreamSynchronize``/``cudaDeviceSynchronize`` calls (less the
+    profiler's closing one) and device-to-host copies, each per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.events()
+    dev_ev = [e.name for e in ev if e.device_type == DeviceType.CUDA]
+    kern = sum(1 for n in dev_ev if not n.startswith(("Memcpy", "Memset")))
+    dtoh = sum(1 for n in dev_ev if "DtoH" in n)
+    syncs = sum(1 for e in ev if e.device_type == DeviceType.CPU
+                and e.name in ("cudaStreamSynchronize",
+                               "cudaDeviceSynchronize")) - 1
+    return dict(launches_a_step=kern / T, syncs_a_step=syncs / T,
+                dtoh_a_step=dtoh / T)
 
 
 def sm_clock_mhz(fn, reps):
@@ -322,27 +353,6 @@ def per_step_ops_ukf(nx, ny, n_f, n_g):
             + 4 * ny * ny * nx + 2 * nx * ny + 2 * nx * ny * ny
             + 2 * nx * nx * ny + 3 * nx * nx + ny * ny + 3 * ny + 4
             + 2 * ns * nx + 3 * ns * nx * nx + 2 * nx * nx)
-
-
-def riccati_steps(A, C, R1, R2, P0, alpha, ftol):
-    """Steps kernel H runs the Riccati update before it freezes (its
-    criterion, float32 on the host): the data-dependent part of its
-    work."""
-    from lowlevelparticlefilters_jl_tpu_torch.ops.linalg import (
-        chol_lower, symmetrize, tri_solve)
-
-    R, n = P0.cpu(), 0
-    A, C, R1, R2 = (M.cpu() for M in (A, C, R1, R2))
-    while n < 100_000:
-        n += 1
-        CR = C @ R
-        L = chol_lower(symmetrize(CR @ C.T) + R2)
-        Kt = tri_solve(L.T, tri_solve(L, CR), lower=False)
-        Rn = alpha * symmetrize(A @ symmetrize(R - Kt.T @ CR) @ A.T) + R1
-        if float((Rn - R).abs().max()) <= ftol * (1 + float(Rn.abs().max())):
-            return n
-        R = Rn
-    return n
 
 
 def nvidia_smi_line():
@@ -506,19 +516,40 @@ def whole_scan_phases(dev, kernels, stats, launches, smi):
     ref8 = float(llpt.loglik(kf8_64, None, ys8[:T_REF].double(),
                              method="sequential"))
     rel8 = check_ref("H T=5000", kf8.loglik_fused(y8[:T_REF]), ref8)
-    n_ric = riccati_steps(A8k, C8k, kf8.R1, kf8.R2, kf8.d0.cov, 1.0,
-                          ukf_scan.FTOL)
+    # and at the main path's T, since the reassociated tail carries it
+    ref8m = float(llpt.loglik(kf8_64, None, ys8.double(), method="sequential"))
+    rel8m = check_ref(f"H T={T_SCAN}", ll8, ref8m)
+    # the freeze step and thread 0's cycles in the serial prefix and the
+    # parallel tail (clock64), and the SM clock under load
+    st8 = torch.zeros(6, dtype=torch.int64, device=dev)
+    ukf_scan.akf_scan(*a50, stats=st8)
+    n_ric, pre_cyc, tail_cyc = st8.tolist()[:3]
+    n_ric_twin = ukf_scan.akf_freeze_step(*(t.cpu() for t in (
+        kf8.d0.cov, kf8.R1, kf8.R2, A8k, C8k)), 1.0, T_SCAN)
+    ms8 = cuda_ms(lambda: ukf_scan.akf_scan(*a50), 20)
+    mhz8 = sm_clock_mhz(lambda: ukf_scan.akf_scan(*a50),
+                        max(20, math.ceil(500 / ms8)))
     ops8 = T_SCAN * 86 + n_ric * 900  # nx = 4, ny = 2 (see PERF.md)
+    bytes8 = 4 * (T_SCAN * 2 + drives_read + 65)
     stats["akf_scan"] = dict(
         max_abs_err=err8, T=T_SCAN, plain_T=T_TWIN, library_ms=None,
-        ms=cuda_ms(lambda: ukf_scan.akf_scan(*a50), 20),
+        ms=ms8, freeze_step=n_ric, prefix_cycles=pre_cyc,
+        tail_cycles=tail_cyc, sm_mhz=mhz8,
+        prefix_ms=pre_cyc / (mhz8 * 1e3), tail_ms=tail_cyc / (mhz8 * 1e3),
+        # the serial prefix as measured (no parallelism shortens it) plus
+        # the tail's bytes at the memory rate
+        chain_bound_ms=pre_cyc / (mhz8 * 1e3) + 4 * (T_SCAN - n_ric) * 2
+        / HBM_BYTES_PER_S * 1e3,
         plain_ms=cuda_ms(lambda: ukf_scan.akf_scan_plain(*a2k), 1),
         # ys and the drives it reads; x0, P0, R1, R2, A, C; ll
-        **bound(4 * (T_SCAN * 2 + drives_read + 65), ops8))
+        **bound(bytes8, ops8))
+    require(abs(n_ric - n_ric_twin) <= 2, f"H freezes at step {n_ric}, the "
+            f"twin's arithmetic at {n_ric_twin}")
     log("H akf_scan", f"T={T_SCAN}: ll {ll8} (loglik_fused, method='fused' "
-        f"and the affine UKF agree); T={T_REF} rel {rel8:.3g} vs f64 "
-        f"sequential; Riccati frozen after {n_ric} steps; launches {path8}; "
-        f"{stats['akf_scan']}")
+        f"and the affine UKF agree); rel {rel8m:.3g} vs f64 sequential; "
+        f"T={T_REF} rel {rel8:.3g}; Riccati frozen from step {n_ric} (twin "
+        f"{n_ric_twin}); prefix {pre_cyc} cycles, tail {tail_cyc} at "
+        f"{mhz8:g} MHz; launches {path8}; {stats['akf_scan']} ({smi})")
     report("H", AKF, lambda: kf8.loglik_fused(y8), "none", "none (main "
            "library)")
 
@@ -772,8 +803,14 @@ def ffbs_phase(dev, kernels, stats, launches, smi, data, model, kf):
     launches["ffbs_backward"] = path["ffbs_backward"]
     for name in ("systematic_gather", "normal", "add_gaussian_noise"):
         launches[name] += path[name]
+    N0, T0, _, _, pf0, uc0, yc0 = cases[0]
+    prof11 = step_profile(lambda: pf0.smooth(
+        uc0, yc0, M=FFBS_M, generator=torch.Generator(device=dev)
+        .manual_seed(SEED)), T0)
     log("FFBS", f"pf.smooth M={FFBS_M} at (N, T) = {FFBS_SIZES}: route "
-        f"cuda_ffbs_kernel; launches {path}")
+        f"cuda_ffbs_kernel; predict route {llpt.last_route('predict')}; "
+        f"launches {path}; a step at N={N0}, T={T0}: {prof11} "
+        f"(torch.profiler)")
 
     worst, rows = 0.0, []
     for (N, T, u, y, pf, uc, yc), xb in zip(cases, xbs):
@@ -1646,23 +1683,50 @@ def main():
     log("C normal", f"bits == plain == curand over {ctr.shape[0]} counters; "
         f"KAT ok; {stats['normal']}")
 
-    # D: within 1e-6 (the same normals; fused multiply-adds against torch's
-    # matmul round differently in the last ulp of values below 1).
-    xn = torch.randn(N_MAIN, 2, device=dev,
+    # D, both forms, at the main path's shapes (the benchmark's model,
+    # N = 1e5): within 1e-6 of the twin (the same normals; fused
+    # multiply-adds in the dynamics and the product against PyTorch's
+    # separate roundings, a few ulps of values near 1); the build of the
+    # filter's library apart; device time by the profiler
+    pfD = model(N_MAIN, backend="kernel")
+    d1 = pfD.dynamics_density
+    xD = torch.randn(N_MAIN, 2, device=dev,
                      generator=torch.Generator(device=dev).manual_seed(SEED))
-    L1 = torch.linalg.cholesky(torch.tensor(R1, device=dev))
-    err = float((noise.add_gaussian_noise(xn, L1, 11, 3)
-                 - noise.add_gaussian_noise_plain(xn, L1, 11, 3)).abs().max())
-    require(err <= 1e-6, f"add_gaussian_noise within 1e-6 (got {err:.3g})")
+    uD = torch.full((1,), 0.3, device=dev)
+    seedD = torch.tensor(11, device=dev)
+    t0 = time.perf_counter()
+    compD = noise.propagate_program(pfD, 1, dev)
+    traceD = time.perf_counter() - t0
+    require(compD is not None, "kernel D compiles the benchmark's dynamics")
+    t0 = time.perf_counter()
+    compD.library()
+    buildD = time.perf_counter() - t0
+    xnD = torch.func.vmap(lambda xi: pfD.dynamics(xi, uD, None, 3.0))(xD)
+    twinD = noise.propagate_plain(pfD.dynamics, xD, uD, None, 3.0, d1.cov,
+                                  d1.mean, seedD, 3)
+    callD = lambda: noise.propagate(pfD, compD, xD, uD, 3.0, seedD, 3)  # noqa
+    callXn = lambda: noise.add_gaussian_noise(  # noqa: E731
+        xnD, d1.cov, d1.mean, seedD, 3)
+    errs = [float((fn() - twinD).abs().max()) for fn in (callD, callXn)]
+    err = max(errs)
+    require(err <= 1e-6, f"kernel D within 1e-6 of its twin (compiled, xn: "
+            f"{errs})")
+    n_f = len(compD.prog.instrs)
     stats["add_gaussian_noise"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: noise.add_gaussian_noise(xn, L1, 11, 3), 50),
-        plain_ms=cuda_ms(lambda: noise.add_gaussian_noise_plain(
-            xn, L1, 11, 3), 5),
-        library_ms=None,  # noise, then a product and a sum: no one call
-        **bound(4 * (2 * N_MAIN * 2 + 4),
-                N_MAIN * (PHILOX_OPS + 2 * NORMAL_OPS + 2 * 4 + 2)))
-    log("D add_gaussian_noise", stats["add_gaussian_noise"])
+        max_abs_err=err, ms=cuda_ms(callD, 50),
+        device_ms=device_ms(callD, "propagate_kernel"),
+        ms_xn=cuda_ms(callXn, 50),
+        device_ms_xn=device_ms(callXn, "add_gaussian_noise_kernel"),
+        plain_ms=cuda_ms(lambda: noise.propagate_plain(
+            pfD.dynamics, xD, uD, None, 3.0, d1.cov, d1.mean, seedD, 3), 5),
+        library_ms=None,  # dynamics, noise, product and sums: no one call
+        trace_s=round(traceD, 3), build_s=round(buildD, 3),
+        # x read and out written; u, cov, mean, the seed, the constants
+        **bound(4 * (2 * N_MAIN * 2 + 1 + 4 + 2 + 2 + 6),
+                N_MAIN * (PHILOX_OPS + 2 * NORMAL_OPS + n_f + 2 * 4 + 2)))
+    log("D propagate", f"compiled and xn forms at N={N_MAIN}; trace "
+        f"{traceD:.3f} s, build {buildD:.3f} s apart from the calls; "
+        f"{stats['add_gaussian_noise']} ({smi})")
 
     # B: bitwise (the kernel copies values; K comes from the same plain
     # _systematic_slots).
@@ -1825,6 +1889,19 @@ def main():
             f"the resampling cumsum has one order: {distinct}")
     log("unfused", f"two seeded calls bitwise equal; distinct results of 50 "
         f"cumsums of {N_MAIN} weights: {distinct}")
+    route5 = llpt.last_route("predict")
+    require(route5 == "cuda_propagate_compiled",
+            f"the unfused PF's predict takes kernel D's compiled form "
+            f"({route5})")
+    prof5 = step_profile(lambda: pfk.forward_trajectory(
+        u5.float().to(dev), y5.float().to(dev),
+        generator=torch.Generator(device=dev).manual_seed(SEED)), T5)
+    med5 = host_median_ms(lambda: pfk.forward_trajectory(
+        u5.float().to(dev), y5.float().to(dev),
+        generator=torch.Generator(device=dev).manual_seed(SEED)))
+    log("unfused", f"forward_trajectory N={N_MAIN} T={T5}: predict route "
+        f"{route5}; a step: {prof5} (torch.profiler); median of 5 "
+        f"{med5:.3f} ms ({smi})")
 
     # main-path time: median of 5 calls after a warm-up, host clock
     def run():

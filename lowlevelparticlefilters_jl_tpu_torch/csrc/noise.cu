@@ -2,19 +2,18 @@
 //
 // Replaces lowlevelparticlefilters_jl_tpu/ops/pallas/noise.py:
 //   llpf_normal             <- _normal_kernel (pallas_normal), noise.py:70
-//   llpf_add_gaussian_noise <- the propagate_gaussian kernel, noise.py:171
+//   llpf_add_gaussian_noise <- the propagate_gaussian kernel, noise.py:171,
+//                              in its xn form (propagate.cuh): f(x) comes
+//                              from PyTorch; the compiled form, with the
+//                              dynamics in the kernel, is built per filter
 // The TPU kernels draw hardware PRNG bits; these draw Philox4x32-10
-// (philox.cuh), so a plain PyTorch twin reproduces every number.  The TPU
-// kernel traced the user dynamics into its body; a compiled kernel cannot
-// take a Python callback, so dyn(x) runs as PyTorch code before the launch
-// and the kernel fuses only the noise draw, the chol product and the add.
+// (philox.cuh), so a plain PyTorch twin reproduces every number.
 //
 // Bound on the card: both are memory-bound streaming passes (normal writes
 // 4 bytes a draw; add_gaussian_noise reads and writes 4*nx bytes a
 // particle) plus the Philox ALU work.  Design: one thread per group of four
 // draws (normal) or per particle (add_gaussian_noise), so every Philox call
-// is used whole and each thread's loads and stores are contiguous; chol
-// (at most 8x8) sits in shared memory.
+// is used whole and each thread's loads and stores are contiguous.
 //
 // llpf_philox_bits and llpf_curand_philox_bits expose the raw words of this
 // generator and of curand's Philox4x32-10, for the known-answer check.
@@ -23,6 +22,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "propagate.cuh"
 
 namespace {
 
@@ -67,32 +67,36 @@ __global__ void normal_kernel(float* __restrict__ out, int64_t n,
     if (4 * g + l < n) out[4 * g + l] = z[l];
 }
 
-// out[i, d] = xn[i, d] + sum_e chol[d, e] z[i, e], z[i, e] normal number
-// e of row i at `step`.
-__global__ void add_gaussian_noise_kernel(const float* __restrict__ xn,
-                                          const float* __restrict__ chol,
-                                          float* __restrict__ out, int64_t N,
-                                          int nx, uint64_t seed,
-                                          uint32_t step) {
-  __shared__ float L[64];
-  for (int k = threadIdx.x; k < nx * nx; k += blockDim.x) L[k] = chol[k];
-  __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  float z[8];
-  llpf_normals4(seed, LLPF_TAG_PROPAGATE, step, (uint32_t)i, 0u, z);
-  if (nx > 4)
-    llpf_normals4(seed, LLPF_TAG_PROPAGATE, step, (uint32_t)i, 1u, z + 4);
+// f(x) of particle i, computed by PyTorch before the launch
+template <int D>
+struct XnDyn {
+  const float* __restrict__ xn;
+  int nx;
+  __device__ __forceinline__ void operator()(int64_t i, float (&out)[D]) const {
 #pragma unroll
-  for (int d = 0; d < 8; ++d) {
-    if (d < nx) {
-      float acc = xn[i * nx + d];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        if (e < nx) acc += L[d * nx + e] * z[e];
-      out[i * nx + d] = acc;
-    }
+    for (int d = 0; d < D; ++d)
+      if (d < nx) out[d] = xn[i * nx + d];
   }
+};
+
+template <int D>
+__global__ void __launch_bounds__(LLPF_PROP_THREADS)
+    add_gaussian_noise_kernel(XnDyn<D> dyn, const float* __restrict__ cov,
+                              const float* __restrict__ mean,
+                              const long long* __restrict__ seed,
+                              uint32_t step, float* __restrict__ out,
+                              int64_t N) {
+  llpf_propagate_body<D>(dyn, dyn.nx, cov, mean, seed, step, out, N);
+}
+
+template <int D>
+void launch_add_gaussian_noise(const float* xn, const float* cov,
+                               const float* mean, const long long* seed,
+                               float* out, int64_t N, int nx, uint32_t step,
+                               cudaStream_t stream) {
+  add_gaussian_noise_kernel<D><<<llpf_prop_blocks(N), LLPF_PROP_THREADS, 0,
+                                 stream>>>(XnDyn<D>{xn, nx}, cov, mean, seed,
+                                           step, out, N);
 }
 
 inline unsigned blocks_for(int64_t n, int threads) {
@@ -129,14 +133,21 @@ int llpf_normal(float* out, int64_t n, uint64_t seed, uint32_t tag,
   return (int)cudaGetLastError();
 }
 
-int llpf_add_gaussian_noise(const float* xn, const float* chol, float* out,
-                            int64_t N, int nx, uint64_t seed, uint32_t step,
+// out = xn + L z + mean: xn [N, nx], cov [nx, nx], mean [nx], seed [1] int64
+int llpf_add_gaussian_noise(const float* xn, const float* cov,
+                            const float* mean, const long long* seed,
+                            float* out, int64_t N, int nx, uint32_t step,
                             void* stream) {
-  if (nx < 1 || nx > 8) return (int)cudaErrorInvalidValue;
-  if (N > 0)
-    add_gaussian_noise_kernel<<<blocks_for(N, 256), 256, 0,
-                                (cudaStream_t)stream>>>(xn, chol, out, N, nx,
-                                                        seed, step);
+  if (nx < 1 || nx > LLPF_PROP_MAX) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N > 0) {
+    if (nx <= 2)
+      launch_add_gaussian_noise<2>(xn, cov, mean, seed, out, N, nx, step, st);
+    else if (nx <= 4)
+      launch_add_gaussian_noise<4>(xn, cov, mean, seed, out, N, nx, step, st);
+    else
+      launch_add_gaussian_noise<8>(xn, cov, mean, seed, out, N, nx, step, st);
+  }
   return (int)cudaGetLastError();
 }
 

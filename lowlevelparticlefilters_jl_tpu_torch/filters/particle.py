@@ -11,9 +11,10 @@ the host each step (the JAX package's ``lax.cond``).
 
 - ``"torch"`` — process noise from ``torch.randn`` with the generator
   (the JAX package's ``"threefry"``),
-- ``"kernel"`` — the initial cloud from kernel C and the process noise
-  added by kernel D (kernels/noise.py; the JAX package's ``"pallas"``),
-  each seeded from the generator.
+- ``"kernel"`` — the initial cloud from kernel C and the propagate step
+  as kernel D, the dynamics, the process noise's factor, its draws and
+  its mean in one launch (kernels/noise.py, routing.route_pf_propagate;
+  the JAX package's ``"pallas"``), each seeded from the generator.
 
 ``smooth`` is the FFBS particle smoother (smoothing.py::ffbs_smooth).
 
@@ -260,20 +261,18 @@ class ParticleFilter(_ParticleCommon):
         p = self.p if p is None else p
         t = state.t * self.Ts if t is None else t
         x, did_resample = self._maybe_resample(state)
-        f = self.dynamics
-        xn = torch.func.vmap(lambda xi: f(xi, u, p, t))(x)
         d1 = self.dynamics_density
         if d1 is not None and self.noise_backend == "kernel":
-            from ..kernels import noise
-            from ..routing import _needs_grad, seed_from_generator
+            from ..routing import route_pf_propagate
 
-            # kernel D is forward-only: its twin draws the same normals
-            add = (noise.add_gaussian_noise_plain if _needs_grad(xn, d1)
-                   else noise.add_gaussian_noise)
-            xn = add(xn, d1.chol(), seed_from_generator(state.generator),
-                     state.t) + d1.mean
-        elif d1 is not None:
-            xn = xn + d1.sample(state.generator, (self.N,))
+            # kernel D: dynamics, factor, noise and mean in one launch
+            xn = route_pf_propagate(self, x, u, p, t, state.generator,
+                                    state.t)
+        else:
+            f = self.dynamics
+            xn = torch.func.vmap(lambda xi: f(xi, u, p, t))(x)
+            if d1 is not None:
+                xn = xn + d1.sample(state.generator, (self.N,))
         w, we = self._weights_after(state, did_resample)
         return PFState(x=xn, w=w, we=we, t=state.t + 1,
                        generator=state.generator)

@@ -8,10 +8,11 @@ the sources and flags, so an edited source rebuilds and an unchanged one
 loads at once.  Nothing here runs at import time: the
 package imports on machines with no ``nvcc`` and no card.
 
-The second build path, :func:`build_generated`, serves the whole-scan
-kernels G and I, whose user callbacks are compiled in: a source
-generated per filter (kernels/ukf_scan.py) includes the kernel template
-``csrc/ukf_scan.cuh`` and becomes its own small library, keyed by a hash
+The second build path, :func:`build_generated`, serves the kernels whose
+user callbacks are compiled in, the whole-scan kernels G and I and kernel
+D's compiled form: a source generated per filter (kernels/ukf_scan.py,
+kernels/noise.py) includes the kernel template ``csrc/ukf_scan.cuh`` or
+``csrc/propagate.cuh`` and becomes its own small library, keyed by a hash
 of the generated source, the headers and the flags.
 
 Every C entry point returns a ``cudaError_t``; :func:`check` raises on a
@@ -42,7 +43,7 @@ _SIGNATURES = {
     "llpf_philox_bits": [_P, _I64, _U32, _U32, _P, _P],
     "llpf_curand_philox_bits": [_P, _I64, _U32, _U32, _P, _P],
     "llpf_normal": [_P, _I64, _U64, _U32, _U32, _P],
-    "llpf_add_gaussian_noise": [_P, _P, _P, _I64, _I, _U64, _U32, _P],
+    "llpf_add_gaussian_noise": [_P, _P, _P, _P, _P, _I64, _I, _U32, _P],
     "llpf_systematic_gather": [_P, _P, _P, _I64, _I, _I, _P],
     "llpf_systematic_index_gather": [_P, _P, _P, _P, _I64, _I, _I, _P],
     "llpf_pf_scan_grid": [_I, _I, _I, _I, _P],
@@ -55,15 +56,18 @@ _SIGNATURES = {
     "llpf_bank_loglik": [_P, _I, _P, _P, _I64, _P, _P, _I64, _I, _I, _I, _I,
                          _P],
     "llpf_akf_scan": [_P] * 9 + [_F, _I, _I, _I] + [_P] * 9,
+    "llpf_akf_scan_stats": [_P] * 9 + [_F, _I, _I, _I] + [_P] * 10,
     "llpf_ffbs_backward": [_P] * 9 + [_I, _I, _I, _I, _U64, _I, _P],
 }
 # entry points of the callback-specialised modules (build_generated)
 _GEN_SIGNATURES = {
     "llpf_ekf_scan": [_P] * 7 + [_F, _F, _I] + [_P] * 9,
     "llpf_ukf_scan": [_P] * 7 + [_F] * 6 + [_I] + [_P] * 9,
+    "llpf_propagate": [_P, _P, _F, _P, _P, _P, _P, _U32, _P, _I64, _P],
 }
 # headers the generated sources include
-_GEN_HEADERS = ("ukf_scan.cuh", "callback_ops.cuh", "scan_common.cuh")
+_GEN_HEADERS = ("ukf_scan.cuh", "callback_ops.cuh", "scan_common.cuh",
+                "propagate.cuh", "philox.cuh")
 
 
 @dataclass

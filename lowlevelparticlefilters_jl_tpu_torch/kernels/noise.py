@@ -1,23 +1,38 @@
 """Gaussian noise kernels (counterpart of ``ops/pallas/noise.py``).
 
 - :func:`normal` — kernel C, standard normals (``pallas_normal``),
-- :func:`add_gaussian_noise` — kernel D, ``xn + z @ cholᵀ`` with z drawn
-  in the kernel (``propagate_gaussian``); ``xn = dyn(x)`` is computed by
-  the caller in PyTorch, because a compiled kernel cannot take a Python
-  callback.
+- kernel D, the bootstrap PF's propagate step ``f(x) + z Lᵀ + μ`` in one
+  launch (``propagate_gaussian``), L the Cholesky factor of the process
+  noise covariance formed in the kernel, in two forms of one template
+  (``csrc/propagate.cuh``):
 
-Both draw Philox4x32-10 (``csrc/philox.cuh``) keyed by a 64-bit seed,
-with counter (row, step, dim // 4, tag).  The plain twins below compute
-the same generator in int64 tensor arithmetic, so on any device they
-draw the same bits as the kernels.  A CUDA tensor goes to the kernel; a
-CPU tensor to the plain twin.
+  - :func:`propagate`, the compiled form: the dynamics
+    ``f(x, u, p, t)`` lowered by ``callback_codegen`` and built into a
+    library per filter (:func:`propagate_program`), as the TPU kernel
+    traces them into its body;
+  - :func:`add_gaussian_noise`, the xn form: ``xn = f(x)`` from PyTorch,
+    for dynamics that do not lower.
+
+  The step's seed is a one-element int64 tensor on the card
+  (``routing.seed_tensor``), never read on the host.
+
+Both kernels draw Philox4x32-10 (``csrc/philox.cuh``) keyed by a 64-bit
+seed, with counter (row, step, dim // 4, tag).  The plain twins below
+compute the same generator in int64 tensor arithmetic, so on any device
+they draw the same bits as the kernels.  A CUDA tensor goes to the
+kernel; a CPU tensor to the plain twin.
 """
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
 import torch
 
-from ._lib import (KernelInfo, check, default_device, library,
-                   require_cuda_f32, stream_ptr)
+from ..ops.linalg import chol_lower
+from ._lib import (KernelInfo, build_generated, check, default_device,
+                   library, require_cuda_f32, stream_ptr)
 
 TAG_NORMAL, TAG_PROPAGATE, TAG_INIT, TAG_RESAMPLE, TAG_FFBS = 1, 2, 3, 4, 5
 
@@ -26,7 +41,7 @@ NORMAL = KernelInfo(
     "lowlevelparticlefilters_jl_tpu/ops/pallas/noise.py:70")
 ADD_GAUSSIAN_NOISE = KernelInfo(
     "add_gaussian_noise",
-    "lowlevelparticlefilters_jl_tpu_torch/csrc/noise.cu",
+    "lowlevelparticlefilters_jl_tpu_torch/csrc/propagate.cuh",
     "lowlevelparticlefilters_jl_tpu/ops/pallas/noise.py:171")
 
 _MASK = 0xFFFFFFFF
@@ -133,31 +148,153 @@ def normal(seed: int, shape, *, tag: int = TAG_NORMAL, step: int = 0,
     return out
 
 
-# -- kernel D: add_gaussian_noise -------------------------------------------
+# -- kernel D: the propagate step ---------------------------------------
 
-def add_gaussian_noise_plain(xn: torch.Tensor, chol: torch.Tensor, seed: int,
-                             step: int) -> torch.Tensor:
+def _seed_int(seed) -> int:
+    """A seed given as an int or as a one-element tensor, read on the
+    host (the twins' way)."""
+    return int(seed) & (2**64 - 1)
+
+
+def add_gaussian_noise_plain(xn: torch.Tensor, cov: torch.Tensor,
+                             mean: torch.Tensor, seed, step: int
+                             ) -> torch.Tensor:
+    """``xn + z Lᵀ + mean`` with L = ``chol_lower(cov)`` (the unrolled
+    factor, NaN where ``cov`` is not positive definite) and z [N, nx] the
+    Philox normals at (seed, step)."""
     N, nx = xn.shape
-    z = normals_plain(seed, TAG_PROPAGATE, step, N, nx, device=xn.device)
-    return xn + z @ chol.T
+    z = normals_plain(_seed_int(seed), TAG_PROPAGATE, step, N, nx,
+                      device=xn.device)
+    return xn + z.to(xn.dtype) @ chol_lower(cov).T + mean
 
 
-def add_gaussian_noise(xn: torch.Tensor, chol: torch.Tensor, seed: int,
-                       step: int) -> torch.Tensor:
-    """``xn + z @ cholᵀ`` with z [N, nx] Philox normals at (seed, step)."""
-    if not xn.is_cuda:
-        return add_gaussian_noise_plain(xn, chol, seed, step)
-    N, nx = xn.shape
+def propagate_plain(f, x: torch.Tensor, u, p, t, cov: torch.Tensor,
+                    mean: torch.Tensor, seed, step: int) -> torch.Tensor:
+    """Kernel D's twin: the dynamics through the callback itself
+    (``vmap``), then :func:`add_gaussian_noise_plain`."""
+    xn = torch.func.vmap(lambda xi: f(xi, u, p, t))(x)
+    return add_gaussian_noise_plain(xn, cov, mean, seed, step)
+
+
+def _check_seed(seed, device) -> None:
+    if not (isinstance(seed, torch.Tensor) and seed.dtype == torch.int64
+            and seed.numel() == 1 and seed.device == device):
+        raise TypeError("kernel D reads its seed from a one-element int64 "
+                        f"tensor on {device} (routing.seed_tensor)")
+
+
+def _noise_inputs(x, cov, mean, seed):
+    N, nx = x.shape
     if nx > 8:
-        raise ValueError("add_gaussian_noise: nx must be <= 8")
-    xn, chol = xn.contiguous(), chol.contiguous()
-    require_cuda_f32("xn", xn)
-    require_cuda_f32("chol", chol, (nx, nx))
+        raise ValueError("kernel D: nx must be <= 8")
+    require_cuda_f32("x", x)
+    require_cuda_f32("cov", cov, (nx, nx))
+    require_cuda_f32("mean", mean, (nx,))
+    _check_seed(seed, x.device)
+    return N, nx
+
+
+def add_gaussian_noise(xn: torch.Tensor, cov: torch.Tensor,
+                       mean: torch.Tensor, seed, step: int) -> torch.Tensor:
+    """Kernel D in its xn form: ``xn + z Lᵀ + mean``, L = chol(cov)
+    formed in the kernel, z [N, nx] Philox normals at (seed, step); the
+    seed a one-element int64 tensor on the card (an int on the CPU)."""
+    if not xn.is_cuda:
+        return add_gaussian_noise_plain(xn, cov, mean, seed, step)
+    xn = xn.contiguous()
+    N, nx = _noise_inputs(xn, cov, mean, seed)
     out = torch.empty_like(xn)
     check(library().lib.llpf_add_gaussian_noise(
-        xn.data_ptr(), chol.data_ptr(), out.data_ptr(), N, nx,
-        int(seed) & (2**64 - 1), int(step) & _MASK, stream_ptr(xn)),
+        xn.data_ptr(), cov.data_ptr(), mean.data_ptr(), seed.data_ptr(),
+        out.data_ptr(), N, nx, int(step) & _MASK, stream_ptr(xn)),
         "add_gaussian_noise")
+    ADD_GAUSSIAN_NOISE.launches += 1
+    return out
+
+
+@dataclass
+class PropagateProgram:
+    """One filter's dynamics lowered for kernel D's compiled form, at one
+    input width and device, with the library built at first launch."""
+
+    nx: int
+    nu: int
+    prog: object                   # callback_codegen.Program ``cb_f``
+    trace_seconds: float
+    build_seconds: float = 0.0
+    lib: object = field(default=None, repr=False)
+    _buf: object = field(default=None, repr=False)
+    _key: tuple = ()
+
+    def source(self) -> str:
+        return "\n".join([
+            "// generated by lowlevelparticlefilters_jl_tpu_torch/kernels/"
+            "noise.py", f"#define LLPF_PROP_NX {self.nx}",
+            '#include "callback_ops.cuh"', self.prog.cpp(0),
+            '#include "propagate.cuh"']) + "\n"
+
+    def library(self):
+        if self.lib is None:
+            t0 = time.perf_counter()
+            self.lib = build_generated(self.source())
+            self.build_seconds = time.perf_counter() - t0
+        return self.lib
+
+    def consts(self, device) -> torch.Tensor:
+        """The dynamics' constants as one float32 buffer on ``device``,
+        rebuilt only when one of them was modified in place (its
+        ``_version``) since the last call."""
+        key = (str(device),) + tuple((id(c), c._version)
+                                     for c in self.prog.consts)
+        if self._buf is None or key != self._key:
+            buf = self.prog.const_buffer(device)
+            self._buf = buf if buf.numel() else torch.zeros(1, device=device)
+            self._key = key
+        return self._buf
+
+
+def propagate_program(pf, nu: int, device) -> Optional[PropagateProgram]:
+    """The filter's dynamics ``f(x, u, pf.p, t)`` lowered for kernel D
+    (traced once per filter, input width and device, as kernels G and I
+    trace theirs); None when they do not lower."""
+    from . import callback_codegen as cg
+    from .ukf_scan import _cached, _examples
+
+    def make():
+        t0 = time.perf_counter()
+        nx, p, f = pf.nx, pf.p, pf.dynamics
+        prog = cg.lower_or_none(lambda x, u, t: f(x, u, p, t),
+                                _examples(pf, nu, device), "Sff", "cb_f")
+        if prog is None or prog.out_shape != (nx,) or nx > 8:
+            return None
+        return PropagateProgram(nx, nu, prog, time.perf_counter() - t0)
+    return _cached(pf, ("PROPAGATE", nu, str(device)), make)
+
+
+def propagate(pf, comp: PropagateProgram, x: torch.Tensor, u: torch.Tensor,
+              t: float, seed, step: int) -> torch.Tensor:
+    """Kernel D in its compiled form: ``f(x_i, u, p, t) + z_i Lᵀ + μ`` for
+    every particle in one launch, f from ``comp`` (:func:`propagate_program`),
+    L and μ from the filter's process noise; the seed a one-element int64
+    tensor on the card.  CPU tensors take :func:`propagate_plain`."""
+    d1 = pf.dynamics_density
+    if not x.is_cuda:
+        return propagate_plain(pf.dynamics, x, u, pf.p, t, d1.cov, d1.mean,
+                               seed, step)
+    N, nx = _noise_inputs(x, d1.cov, d1.mean, seed)
+    if nx != comp.nx or u.ndim != 1 or u.shape[0] != comp.nu:
+        raise ValueError(f"kernel D was built for nx = {comp.nx}, nu = "
+                         f"{comp.nu}; got x {tuple(x.shape)}, u "
+                         f"{tuple(u.shape)}")
+    if comp.nu:
+        require_cuda_f32("u", u)
+    consts = comp.consts(x.device)
+    out = torch.empty_like(x)
+    check(comp.library().llpf_propagate(
+        x.data_ptr(), u.data_ptr() if comp.nu else None, float(t),
+        consts.data_ptr(), d1.cov.data_ptr(), d1.mean.data_ptr(),
+        seed.data_ptr(), int(step) & _MASK, out.data_ptr(), N,
+        stream_ptr(x)), "propagate")
     ADD_GAUSSIAN_NOISE.launches += 1
     return out
 

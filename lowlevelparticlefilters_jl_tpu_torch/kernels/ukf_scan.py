@@ -8,7 +8,9 @@ in one launch:
   the user's ``innovation``, ``mean`` and ``state_mean`` hooks;
 - **H** (``csrc/akf_scan.cu``): the affine KF with constant Jacobians
   A, C, the drives ``c_t = f(0, u_t, t)``, ``d_t = g(0, u_t, t)`` as data,
-  and the Riccati recursion frozen once it is stationary; it serves
+  and the Riccati recursion frozen once it is stationary: a serial prefix
+  up to the freeze (:func:`akf_freeze_step`), then the remaining linear
+  recursion as a chunked parallel scan; it serves
   ``KalmanFilter.loglik_fused`` and every affine UKF/EKF;
 - **I** (``csrc/ukf_scan.cuh``, kind EKF): the EKF with per-step
   Jacobians from the user's ``Ajac``/``Cjac`` or by forward mode.
@@ -526,6 +528,20 @@ def _gain(L, rhs):
     return tri_solve(L.mT, tri_solve(L, rhs, lower=True), lower=False)
 
 
+def _riccati(R, A, C, R1, R2, alpha: float, eye):
+    """One Riccati update of kernel H from the prior ``R``: ``(S, L, Kᵀ,
+    S⁻¹, Rpost, Rn, converged)``, ``converged`` the freeze test on the
+    movement from ``R`` to the next prior ``Rn``."""
+    CR = C @ R
+    S = symmetrize(CR @ C.mT) + R2
+    L = chol_lower(S)
+    Kt = _gain(L, CR)
+    Rpost = symmetrize(R - Kt.mT @ CR)
+    Rn = alpha * symmetrize(A @ Rpost @ A.mT) + R1
+    conv = bool((Rn - R).abs().max() <= FTOL * (1.0 + Rn.abs().max()))
+    return S, L, Kt, _gain(L, eye), Rpost, Rn, conv
+
+
 def akf_scan_plain(ys, cs, ds, x0, P0, R1, R2, A, C, alpha: float, *,
                    traj: bool = False):
     """Kernel H's recursion as PyTorch ops, freeze included; returns
@@ -541,19 +557,11 @@ def akf_scan_plain(ys, cs, ds, x0, P0, R1, R2, A, C, alpha: float, *,
     for t in range(T):
         if not conv:
             Rp = R
-            CR = C @ R
-            S = symmetrize(CR @ Ct) + R2
-            L = chol_lower(S)
-            Kt = _gain(L, CR)
-            Sinv = _gain(L, eye)
-            Rpost = symmetrize(R - Kt.mT @ CR)
-            Rn = alpha * symmetrize(A @ Rpost @ At) + R1
-            conv = bool((Rn - R).abs().max()
-                        <= FTOL * (1.0 + Rn.abs().max()))
+            S, L, Kt, Sinv, Rpost, R, conv = _riccati(R, A, C, R1, R2, alpha,
+                                                      eye)
             KtAt = Kt @ At
             G = At - Ct @ KtAt
             logdet = 2.0 * torch.log(torch.diagonal(L)).sum()
-            R = Rn
         yeff = ys[t] if ds is None else ys[t] - ds[t]
         e = yeff - x @ Ct
         q = ((e @ Sinv) * e).sum()
@@ -566,6 +574,20 @@ def akf_scan_plain(ys, cs, ds, x0, P0, R1, R2, A, C, alpha: float, *,
         if cs is not None:
             x = x + cs[t]
     return ll, (_stack(outs) if traj else None)
+
+
+def akf_freeze_step(P0, R1, R2, A, C, alpha: float, T: int) -> int:
+    """The first step of kernel H's parallel tail: one past the step
+    whose Riccati update met the freeze test, by the twin's arithmetic
+    (T when no update within T did).  The steps before it are the serial
+    prefix."""
+    eye = torch.eye(C.shape[0], dtype=P0.dtype, device=P0.device)
+    R = P0
+    for t in range(T):
+        *_, R, conv = _riccati(R, A, C, R1, R2, alpha, eye)
+        if conv:
+            return t + 1
+    return T
 
 
 def _gaussian_inputs(f, device):
@@ -684,11 +706,16 @@ def _outputs(T, nx, ny, device, traj):
 
 
 def akf_scan(ys, cs, ds, x0, P0, R1, R2, A, C, alpha: float, *,
-             traj: bool = False):
+             traj: bool = False, stats: Optional[torch.Tensor] = None):
     """Kernel H: the log-likelihood (and the solution when ``traj``) of
     the affine KF over ``ys [T, ny]`` with drives ``cs [T, nx]``, ``ds
     [T, ny]`` (None for a drive that is zero: it is not read).  A CUDA
-    ``ys`` launches the kernel; a CPU one runs the twin."""
+    ``ys`` launches the kernel; a CPU one runs the twin.  ``stats``, an
+    int64 [6] tensor on the card, receives the freeze step t_f (the tail's
+    first step, :func:`akf_freeze_step`) and thread 0's ``clock64`` cycles
+    in the serial prefix and in the parallel tail, then of the tail in its
+    first pass (with G^L), the scan of the chunk ends and its second
+    pass."""
     if not ys.is_cuda:
         return akf_scan_plain(ys, cs, ds, x0, P0, R1, R2, A, C, alpha,
                               traj=traj)
@@ -704,12 +731,21 @@ def akf_scan(ys, cs, ds, x0, P0, R1, R2, A, C, alpha: float, *,
         if t is not None:
             require_cuda_f32(name, t, shape)
     ll, outs, ptrs = _outputs(T, nx, ny, ys.device, traj)
-    check(library().lib.llpf_akf_scan(
-        ys.data_ptr(), cs.data_ptr() if cs is not None else None,
-        ds.data_ptr() if ds is not None else None, x0.data_ptr(),
-        P0.data_ptr(), R1.data_ptr(), R2.data_ptr(), A.data_ptr(),
-        C.data_ptr(), float(alpha), T, nx, ny, ll.data_ptr(), *ptrs,
-        stream_ptr(ys)), "akf_scan")
+    args = (ys.data_ptr(), cs.data_ptr() if cs is not None else None,
+            ds.data_ptr() if ds is not None else None, x0.data_ptr(),
+            P0.data_ptr(), R1.data_ptr(), R2.data_ptr(), A.data_ptr(),
+            C.data_ptr(), float(alpha), T, nx, ny, ll.data_ptr(), *ptrs)
+    lib = library().lib
+    if stats is None:
+        code = lib.llpf_akf_scan(*args, stream_ptr(ys))
+    else:
+        if not (stats.is_cuda and stats.dtype == torch.int64
+                and stats.numel() == 6 and stats.is_contiguous()):
+            raise ValueError("akf_scan: stats must be a contiguous int64 "
+                             "[6] CUDA tensor")
+        code = lib.llpf_akf_scan_stats(*args, stats.data_ptr(),
+                                       stream_ptr(ys))
+    check(code, "akf_scan")
     AKF_SCAN.launches += 1
     return ll[0], outs
 

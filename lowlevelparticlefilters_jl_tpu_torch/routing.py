@@ -37,6 +37,12 @@ kernels are forward-only, their wrappers raise on such a tensor.
 ``"smooth"``.  ``mean_trajectory`` of a particle filter records
 ``"cuda_fused_scan"`` (kernel A in its moments mode),
 ``"fused_scan_plain"`` or ``"sequential"`` under ``"mean_trajectory"``.
+A particle filter's ``predict`` with ``noise_backend="kernel"`` records
+kernel D's form under ``"predict"`` only (``last_route()`` keeps the
+verb's route): ``"cuda_propagate_compiled"`` (the dynamics compiled into
+the kernel), ``"cuda_propagate"`` (``f(x)`` from PyTorch, then the
+kernel) or ``"propagate_plain"`` (the twin: CPU tensors, or tensors that
+autograd records).
 """
 from __future__ import annotations
 
@@ -55,9 +61,10 @@ METHODS = ("auto", "sequential", "fused", "parallel")
 T_PARALLEL = 256
 
 
-def _record(verb: str, path: str) -> None:
+def _record(verb: str, path: str, last: bool = True) -> None:
     _LAST[verb] = path
-    _LAST["last"] = path
+    if last:
+        _LAST["last"] = path
 
 
 def last_route(verb: str = "last") -> Optional[str]:
@@ -140,6 +147,47 @@ def seed_from_generator(generator) -> int:
     device = generator.device if generator is not None else "cpu"
     return int(torch.randint(0, 2**63 - 1, (), generator=generator,
                              device=device))
+
+
+def seed_tensor(generator, device) -> torch.Tensor:
+    """:func:`seed_from_generator`'s draw as a 0-dim int64 tensor on
+    ``device``, never read on the host: kernel D reads it from device
+    memory, so drawing it costs a launch and no synchronization."""
+    gdev = generator.device if generator is not None else "cpu"
+    return torch.randint(0, 2**63 - 1, (), generator=generator,
+                         device=gdev).to(device)
+
+
+def route_pf_propagate(pf, x, u, p, t, generator, step: int):
+    """A bootstrap PF's propagate step with kernel D
+    (``noise_backend="kernel"``): ``f(x_i, u, p, t) + z_i Lᵀ + μ``.  On
+    CUDA tensors the compiled form when the dynamics lower
+    (``noise.propagate_program``) and ``p`` is the filter's own, else the
+    xn form with ``f(x)`` from PyTorch; the plain twin on CPU tensors, and
+    for tensors that autograd records (the kernels are forward-only)."""
+    from .kernels import noise
+
+    d1 = pf.dynamics_density
+    seed = seed_tensor(generator, x.device)
+    if x.is_cuda and not _needs_grad(x, u, d1) \
+            and not _under_batch_trace(x, u, d1):
+        comp = None
+        if ((p is None or p is pf.p) and isinstance(u, torch.Tensor)
+                and u.ndim == 1 and u.is_cuda
+                and u.dtype == torch.float32 and u.is_contiguous()
+                and x.dtype == torch.float32):
+            comp = noise.propagate_program(pf, u.shape[0], x.device)
+        if comp is not None and not _needs_grad(comp.prog.consts):
+            _record("predict", "cuda_propagate_compiled", last=False)
+            return noise.propagate(pf, comp, x, u, t, seed, step)
+        f = pf.dynamics
+        xn = torch.func.vmap(lambda xi: f(xi, u, p, t))(x)
+        if not _needs_grad(xn):
+            _record("predict", "cuda_propagate", last=False)
+            return noise.add_gaussian_noise(xn, d1.cov, d1.mean, seed, step)
+    _record("predict", "propagate_plain", last=False)
+    return noise.propagate_plain(pf.dynamics, x, u, p, t, d1.cov, d1.mean,
+                                 seed, step)
 
 
 def route_pf_loglik(pf, u, y, p, generator, state0, method: str):

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Probe kernels C (normal draws), G, H, I (whole scans) and A (the
-bootstrap PF in one launch) on the card: device time against host time,
-the compiled step loops, A's time a step and the cost of a grid sync.
+"""Probe kernels C (normal draws), G, H, I (whole scans), A (the
+bootstrap PF in one launch) and D (the PF's propagate step) on the card:
+device time against host time, the compiled step loops, A's time a step,
+the cost of a grid sync, H's prefix and tail, D's step.
 
-    python3 scripts/torch_kernel_probe.py [noise] [scan] [pf] [sync] [--out DIR]
+    python3 scripts/torch_kernel_probe.py [noise] [scan] [pf] [sync] [akf] [prop]
+        [--out DIR]
 
 Needs one CUDA card.  Runs the named sections (all without arguments).
 It reads the kernels of the checkout it lies in, so a copy of it in
@@ -37,7 +39,20 @@ tree only, and reads neither G's nor H's step loop.
 - ``sync``: a kernel of empty ``grid.sync()`` rounds (and rounds that
   also read every block's partial, as A's grid-wide sums do) at A's grids
   at N = 1e5 and 1e6 and at 132 x 1024: microseconds a sync, A's sync
-  floor.  Needs ``llpf_grid_sync_probe`` (this tree's ``csrc/pf_scan.cu``).
+  floor.  Needs ``llpf_grid_sync_probe`` (this tree's ``csrc/pf_scan.cu``);
+- ``akf``: kernel H at T = 5e4 on the CV KF with R1 = 0.1 I and with
+  R1 = 1e-4 I (G close to 1), ll and trajectory: ms a call by CUDA events
+  (20 calls), the SM clock, cycles a step; where the tree's H reports
+  them (``akf_scan(..., stats=)``), the freeze step t_f and thread 0's
+  ``clock64`` cycles in the serial prefix and the parallel tail; the
+  host-clock median of ``kf.loglik_fused``;
+- ``prop``: the bootstrap PF's predict step with ``noise_backend=
+  "kernel"`` (kernel D) on the benchmark's model at N = 1e5 and 1000: the
+  host-clock median ms of a step (with a synchronize; 200 steps) and,
+  by ``torch.profiler``, its launches and host synchronizations; then
+  ``forward_trajectory`` at N = 1e5, T = 100 (``chip_smoke.py`` phase 5)
+  and ``pf.smooth`` at N = M = 1000, T = 500 (phase 11), host-clock
+  medians of 5 and 3 calls, with launches and synchronizations a step.
 
 Prints one line per measurement and, last, the card's ``nvidia-smi`` name
 and power limit.
@@ -120,6 +135,124 @@ def clock_while(fn):
     seen = smi("clocks.sm").split()[0]
     torch.cuda.synchronize()
     return (float(seen) if seen.isdigit() else float("nan")), ms
+
+
+def step_counts(fn, steps):
+    """Device kernels, ``cudaStreamSynchronize``/``cudaDeviceSynchronize``
+    calls (less the profiler's closing one) and device-to-host copies a
+    step of one call of ``fn`` over ``steps`` steps, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.events()
+    dev_ev = [e.name for e in ev if e.device_type == DeviceType.CUDA]
+    kern = sum(1 for n in dev_ev if not n.startswith(("Memcpy", "Memset")))
+    dtoh = sum(1 for n in dev_ev if "DtoH" in n)
+    syncs = sum(1 for e in ev if e.device_type == DeviceType.CPU
+                and e.name in ("cudaStreamSynchronize",
+                               "cudaDeviceSynchronize")) - 1
+    return (f"{kern / steps:.2f} launches, {syncs / steps:.2f} syncs, "
+            f"{dtoh / steps:.2f} DtoH copies a step")
+
+
+def host_ms(fn, reps):
+    """Median host ms of ``fn`` with a synchronize, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def akf_section(dev):
+    """Kernel H's prefix and tail (see the module doc)."""
+    import inspect
+
+    import chip_smoke as cs
+    from lowlevelparticlefilters_jl_tpu_torch import convert
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import ukf_scan as k
+
+    T = 50_000
+    y = torch.randn(T, 2, generator=torch.Generator().manual_seed(80)).to(dev)
+    has_stats = "stats" in inspect.signature(k.akf_scan).parameters
+    for r1 in (0.1, 1e-4):
+        kf = convert.kalman_filter_from_numpy(
+            cs.CV_A, None, cs.CV_C, 0,
+            [[r1 * (i == j) for j in range(4)] for i in range(4)],
+            [[1.0, 0.0], [0.0, 1.0]], dtype=torch.float32, device=dev)
+        v = k.affinity(kf, 0)
+        d = k.live_drives(*k.drives(v.ekf, None, T, dev))
+        hin = (y, *d, *k._gaussian_inputs(v.ekf, dev), *v.AC, 1.0)
+        for traj in (False, True):
+            mhz, ms = clock_while(lambda: k.akf_scan(*hin, traj=traj))
+            line = (f"akf R1={r1} traj={traj} T={T}: {ms:.4f} ms a call by "
+                    f"CUDA events, SM clock {mhz} MHz, "
+                    f"{ms * 1e-3 * mhz * 1e6 / T:.1f} cycles a step")
+            if has_stats:
+                st = torch.zeros(6, dtype=torch.int64, device=dev)
+                k.akf_scan(*hin, traj=traj, stats=st)
+                tf, pre, tail, p1, scan, p2 = st.tolist()
+                line += (f"; t_f {tf}, prefix {pre} cycles ({pre / mhz:.2f} "
+                         f"us, {pre / max(tf, 1):.0f} a step), tail {tail} "
+                         f"cycles ({tail / mhz:.2f} us, "
+                         f"{tail / max(T - tf, 1):.2f} a step: pass 1 {p1}, "
+                         f"scan {scan}, pass 2 {p2})")
+            print(line, flush=True)
+        print(f"akf R1={r1}: kf.loglik_fused host median of 20 "
+              f"{host_ms(lambda: kf.loglik_fused(y), 20):.4f} ms", flush=True)
+
+
+def prop_section(dev):
+    """Kernel D's predict step and the unfused paths (module doc)."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch import convert
+
+    A = [[0.97043, -0.097368], [0.097368, 0.970437]]
+    B, C = [[0.1], [0.0]], [[1.0, 0.0], [0.0, 1.0]]
+    R1 = [[0.01, 0.0], [0.0, 0.01]]
+    R2 = [[0.1, 0.0], [0.0, 0.1]]
+    kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, device="cpu")
+
+    def model(N):
+        f, g = convert.linear_callbacks(A, B, C, device=dev)
+        return convert.particle_filter_from_numpy(
+            N, f, g, R1, R2, R1, noise_backend="kernel", device=dev)
+
+    def data(T, seed):
+        u = torch.full((T, 1), 0.3, dtype=torch.float64)
+        _, u, y = llpt.simulate(kf, u, torch.Generator().manual_seed(seed))
+        return u.float().to(dev), y.float().to(dev)
+
+    u1 = torch.full((1,), 0.3, device=dev)
+    for N in (100_000, 1000):
+        pf = model(N)
+        st = pf.init(torch.Generator(device=dev).manual_seed(0))
+        step = lambda: pf.predict(st, u1)  # noqa: E731
+        print(f"prop predict N={N}: host median of 200 "
+              f"{host_ms(step, 200):.4f} ms a step; {step_counts(step, 1)}; "
+              f"route {llpt.routing.last_route('predict')}", flush=True)
+    pf = model(100_000)
+    u, y = data(100, 5)
+    fwd = lambda: pf.forward_trajectory(  # noqa: E731
+        u, y, generator=torch.Generator(device=dev).manual_seed(0))
+    print(f"prop forward_trajectory N=1e5 T=100: host median of 5 "
+          f"{host_ms(fwd, 5):.3f} ms; {step_counts(fwd, 100)}", flush=True)
+    pf = model(1000)
+    u, y = data(500, 610)
+    sm = lambda: pf.smooth(  # noqa: E731
+        u, y, M=1000, generator=torch.Generator(device=dev).manual_seed(0))
+    print(f"prop pf.smooth N=M=1000 T=500: host median of 3 "
+          f"{host_ms(sm, 3):.3f} ms; {step_counts(sm, 500)}", flush=True)
 
 
 def noise_section(dev):
@@ -349,7 +482,7 @@ def main():
         k = args.index("--out")
         out = Path(args[k + 1])
         del args[k:k + 2]
-    sections = set(args) or {"noise", "scan", "pf", "sync"}
+    sections = set(args) or {"noise", "scan", "pf", "sync", "akf", "prop"}
     print(f"clocks: {smi('clocks.sm,clocks.max.sm')}", flush=True)
     if "noise" in sections:
         noise_section(dev)
@@ -359,6 +492,10 @@ def main():
         pf_section(dev)
     if "sync" in sections:
         sync_section(dev)
+    if "akf" in sections:
+        akf_section(dev)
+    if "prop" in sections:
+        prop_section(dev)
 
     print(smi("name,power.limit"), flush=True)
     return 0

@@ -48,8 +48,10 @@ def test_normal_and_add_gaussian_noise(cuda_device):
     assert float((z - zp).abs().max()) <= 1e-6
     xn = torch.randn(100_000, 2, device=cuda_device)
     chol = torch.tensor([[0.1, 0.0], [0.02, 0.1]], device=cuda_device)
-    out = noise.add_gaussian_noise(xn, chol, 11, 3)
-    ref = noise.add_gaussian_noise_plain(xn, chol, 11, 3)
+    cov, mean = chol @ chol.T, torch.tensor([0.3, -0.1], device=cuda_device)
+    seed = torch.tensor(11, device=cuda_device)
+    out = noise.add_gaussian_noise(xn, cov, mean, seed, 3)
+    ref = noise.add_gaussian_noise_plain(xn, cov, mean, seed, 3)
     assert float((out - ref).abs().max()) <= 1e-6
 
 
@@ -372,11 +374,13 @@ def _angle_ukf(dev):
         state_mean=smean)
 
 
-@pytest.mark.parametrize("T", [1, 130, 300])
+@pytest.mark.parametrize("T", [1, 50, 130, 300, 2000])
 def test_akf_kernel_matches_twin(cuda_device, T):
     """Kernel H against its twin (freeze included), ll and solution, with
     both drives, one, and none (not read); T crosses the 128-step staging
-    chunks."""
+    chunks, the freeze (near step 70) and, at 2000, the tail's 256
+    chunks of 8 steps; T = 50 never freezes (the prefix is all).  The
+    twin runs on the CPU from T = 2000 on."""
     ekf = _cv_filters(cuda_device)
     g = torch.Generator().manual_seed(T)
     ys = torch.randn(T, 2, generator=g).to(cuda_device)
@@ -386,12 +390,98 @@ def test_akf_kernel_matches_twin(cuda_device, T):
     gauss = ukf_scan._gaussian_inputs(ekf, cuda_device)
     for drives in ((cs, ds), (cs, None), (None, None)):
         args = (ys, *drives, *gauss, A, C, 1.01)
+        twin_args = _on_cpu(args) if T >= 2000 else args
         for traj in (False, True):
             before = ukf_scan.AKF_SCAN.launches
             got = ukf_scan.akf_scan(*args, traj=traj)
             assert ukf_scan.AKF_SCAN.launches == before + 1
-            _close_solution(got, ukf_scan.akf_scan_plain(*args, traj=traj))
+            _close_solution(got, ukf_scan.akf_scan_plain(*twin_args,
+                                                         traj=traj))
 
+
+def _on_cpu(args):
+    return tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+def _akf_case(case, dev, drives, T):
+    """Kernel H's inputs for the redesign's edge cases: ``g1``, CV with
+    R1 = 1e-4 I (the steady-state G close to 1, the freeze near step
+    260); ``never``, CV at T = 50 (no freeze within T); ``nx8``, an
+    8-state model observed in 3 (the M = 8 instance); ``ny3``, 2 states
+    observed in 3 (the generic M = 4 instance, with padding on both
+    sides).  ``drives``: both, c only, or none."""
+    g = torch.Generator().manual_seed(T + len(case))
+    if case in ("nx8", "ny3"):
+        nx, ny = (8, 3) if case == "nx8" else (2, 3)
+        A = 0.95 * torch.eye(nx) + 0.05 * torch.roll(torch.eye(nx), 1, 0)
+        C = 0.5 * torch.randn(ny, nx, generator=g)
+        R1_, R2_, P0 = (0.01 * torch.eye(nx), 0.5 * torch.eye(ny),
+                        torch.eye(nx))
+    else:
+        nx, ny = 4, 2
+        A, C = torch.tensor(CV_A, dtype=torch.float32), torch.tensor(
+            CV_C, dtype=torch.float32)
+        R1_ = (1e-4 if case == "g1" else 0.1) * torch.eye(4)
+        R2_, P0 = torch.eye(2), 0.5 * torch.eye(4)
+    ys = torch.randn(T, ny, generator=g)
+    cs = 0.3 * torch.randn(T, nx, generator=g) if drives != "none" else None
+    ds = 0.2 * torch.randn(T, ny, generator=g) if drives == "both" else None
+    cpu = (ys, cs, ds, torch.zeros(nx), P0, R1_, R2_, A, C, 1.0)
+    return tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                 for a in cpu), cpu
+
+
+@pytest.mark.parametrize("drives", ["both", "c", "none"])
+@pytest.mark.parametrize("case, T", [("g1", 5000), ("never", 50),
+                                     ("nx8", 2000), ("ny3", 300)])
+def test_akf_kernel_edge_cases_match_twin(cuda_device, case, T, drives):
+    """Kernel H's prefix and tail against the float32 twin on the CPU:
+    the ll within 1e-5 relative and R, Rt, S, K within the usual bounds
+    in every case.  x(t|t-1), x(t|t) and e within the usual bounds too,
+    except at G close to 1 with drives, where the state walks to |x| ~ 13
+    and the serial float32 twin itself is 2-3e-5 from float64 there: the
+    kernel's reassociated tail must then be no farther from the float64
+    recursion than twice the twin's distance (plus 1e-6)."""
+    args, cpu = _akf_case(case, cuda_device, drives, T)
+    for traj in (False, True):
+        got = ukf_scan.akf_scan(*args, traj=traj)
+        want = ukf_scan.akf_scan_plain(*cpu, traj=traj)
+        if not (traj and case == "g1" and drives != "none"):
+            _close_solution(got, want)
+            continue
+        _close_solution((got[0], got[1][1:2] + got[1][3:4] + got[1][5:]),
+                        (want[0], want[1][1:2] + want[1][3:4]
+                         + want[1][5:]))
+        truth = ukf_scan.akf_scan_plain(
+            *(a.double() if isinstance(a, torch.Tensor) else a
+              for a in cpu), traj=True)[1]
+        for k in (0, 2, 4):   # x, xt, e
+            err_k = float((got[1][k].cpu().double() - truth[k]).abs().max())
+            err_t = float((want[1][k].double() - truth[k]).abs().max())
+            assert err_k <= 2 * err_t + 1e-6, (ukf_scan._FIELDS[k], err_k,
+                                               err_t)
+
+
+def test_akf_kernel_two_calls_bitwise_and_reports_freeze(cuda_device):
+    """Two calls of kernel H give equal bits (the ll summed in a fixed
+    tree order), the solution too; its stats report the freeze step
+    within 2 of the twin's (float32 rounding moves the freeze test's
+    crossing), and the prefix and the tail in cycles; at T = 50 nothing
+    freezes."""
+    for case, T in (("g1", 5000), ("never", 50)):
+        args, cpu = _akf_case(case, cuda_device, "both", T)
+        a = ukf_scan.akf_scan(*args, traj=True)
+        b = ukf_scan.akf_scan(*args, traj=True)
+        assert torch.equal(a[0], b[0])
+        assert all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+        stats = torch.zeros(6, dtype=torch.int64, device=cuda_device)
+        ll = ukf_scan.akf_scan(*args, stats=stats)[0]
+        assert torch.equal(ll, a[0])
+        tf, pre, tail = stats.tolist()[:3]
+        want = ukf_scan.akf_freeze_step(*cpu[4:], T)
+        assert abs(tf - want) <= 2 and pre > 0 and tail >= 0
+        assert (tf == T) == (case == "never")
 
 def _nonlinear_input_ekf(dev):
     """``A x + B u + 0.01 sin x``: kernel I with inputs staged."""
@@ -764,6 +854,108 @@ def test_pf_forward_trajectory_reproducible_on_card(cuda_device, backend):
     assert resample_route.SYSTEMATIC_GATHER.launches >= before + 2
     for f in ("x", "w", "we", "ll"):
         assert torch.equal(getattr(sols[0], f), getattr(sols[1], f)), f
+
+
+_A4 = 0.9 * np.eye(4) + 0.05 * np.roll(np.eye(4), 1, 0)
+
+
+def _prop_pf(case, dev, cov=None):
+    """Kernel D's filters: the benchmark's affine dynamics (nu = 1), or
+    ``A4 x + 0.01 sin x`` (nu = 0); ``cov`` replaces the process noise
+    covariance."""
+    if case == "nonlinear":
+        At = torch.tensor(_A4, dtype=torch.float32, device=dev)
+        f = lambda x, u, p, t: At @ x + 0.01 * torch.sin(x)  # noqa: E731
+        nx, mean = 4, 0.1 * np.ones(4)
+    else:
+        f, _ = convert.linear_callbacks(A, B, C, device=dev)
+        nx, mean = 2, [0.05, -0.02]
+    cov = 0.01 * np.eye(nx) + 0.002 if cov is None else cov
+    return convert.particle_filter_from_numpy(
+        50_000, f, lambda x, u, p, t: x[:2], cov, R2, np.eye(nx),
+        R1_mean=mean, noise_backend="kernel", resample_threshold=0.0,
+        device=dev)
+
+
+@pytest.mark.parametrize("singular", [False, True])
+@pytest.mark.parametrize("case", ["affine", "nonlinear"])
+def test_propagate_forms_match_twin(cuda_device, case, singular):
+    """Kernel D's compiled form (the dynamics in the kernel) and its xn
+    form (``f(x)`` from PyTorch: a ``p`` other than the filter's own)
+    through ``pf.predict``, each against the twin on the same CUDA
+    tensors and seed: within 1e-5 absolute (the same normals; fused
+    multiply-adds against PyTorch's separate products and sums); a
+    covariance with a zero pivot gives NaN in the same places in all
+    three."""
+    nx = 4 if case == "nonlinear" else 2
+    cov = np.diag([0.0] + [0.01] * (nx - 1)) if singular else None
+    pf = _prop_pf(case, cuda_device, cov)
+    x = torch.randn(pf.N, nx, generator=torch.Generator().manual_seed(0)
+                    ).to(cuda_device)
+    u = torch.full((1 if nx == 2 else 0,), 0.3, device=cuda_device)
+    st = pf.init(torch.Generator(device=cuda_device).manual_seed(0)
+                 ).replace(x=x, t=7)
+    d1 = pf.dynamics_density
+    twin = noise.propagate_plain(
+        pf.dynamics, x, u, None, 7.0, d1.cov, d1.mean,
+        llpt.routing.seed_tensor(torch.Generator(device=cuda_device)
+                                 .manual_seed(1), cuda_device), 7)
+    for p, route in ((None, "cuda_propagate_compiled"),
+                     ((), "cuda_propagate")):
+        before = noise.ADD_GAUSSIAN_NOISE.launches
+        got = pf.predict(st.replace(generator=torch.Generator(
+            device=cuda_device).manual_seed(1)), u, p).x
+        assert llpt.last_route("predict") == route
+        assert noise.ADD_GAUSSIAN_NOISE.launches == before + 1
+        assert torch.equal(got.isnan(), twin.isnan())
+        assert bool(got.isnan().any()) == singular
+        torch.testing.assert_close(got.nan_to_num(), twin.nan_to_num(),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("nx", [2, 4])
+def test_propagate_draws_equal_kernel_c(cuda_device, nx):
+    """Kernel D's normals are bitwise kernel C's at the same Philox
+    counters (row i, step, block, TAG_PROPAGATE), as before the redesign:
+    with f(x) = 0, R1 = I and a zero mean both forms return them
+    exactly."""
+    N, step = 100_003, 5
+    seed = torch.tensor(987654321, device=cuda_device)
+    zc = noise.normal(987654321, (N, 4), tag=noise.TAG_PROPAGATE, step=step,
+                      device=cuda_device)[:, :nx]
+    eye, zero = torch.eye(nx, device=cuda_device), torch.zeros(
+        nx, device=cuda_device)
+    xn = torch.zeros(N, nx, device=cuda_device)
+    assert torch.equal(noise.add_gaussian_noise(xn, eye, zero, seed, step),
+                       zc)
+    pf = convert.particle_filter_from_numpy(
+        N, lambda x, u, p, t: 0.0 * x, lambda x, u, p, t: x, np.eye(nx),
+        np.eye(nx), np.eye(nx), noise_backend="kernel", device=cuda_device)
+    comp = noise.propagate_program(pf, 0, cuda_device)
+    u0 = torch.zeros(0, device=cuda_device)
+    assert torch.equal(noise.propagate(pf, comp, xn, u0, 0.0, seed, step),
+                       zc)
+
+
+def test_propagate_step_syncs_nothing(cuda_device):
+    """A predict step's kernel D call (the route, the seed draw, the
+    launch) makes no host synchronization once the filter's program is
+    built; the Neff decision before it is the filter's own."""
+    pf = _prop_pf("affine", cuda_device)
+    x = torch.randn(pf.N, 2, device=cuda_device)
+    u = torch.full((1,), 0.3, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    llpt.routing.route_pf_propagate(pf, x, u, None, 0.0, g, 0)  # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in range(3):
+            out = llpt.routing.route_pf_propagate(pf, x, u, None, 1.0, g,
+                                                  step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert llpt.last_route("predict") == "cuda_propagate_compiled"
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
 
 
 def test_smooth_routes_on_card(cuda_device):

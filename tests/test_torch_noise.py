@@ -5,6 +5,7 @@ import math
 import torch
 
 from lowlevelparticlefilters_jl_tpu_torch.kernels import noise
+from lowlevelparticlefilters_jl_tpu_torch.ops.linalg import chol_lower
 
 # Random123 kat_vectors: philox4x32_10, counter 0, key 0
 KAT = [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
@@ -41,9 +42,13 @@ def test_normal_layout_matches_rows():
 
 
 def test_add_gaussian_noise_plain():
+    """Kernel D's xn form on CPU tensors: ``xn + z Lᵀ + mean`` with L the
+    unrolled factor of the covariance, bit for bit."""
     g = torch.Generator().manual_seed(0)
     xn = torch.randn(1000, 3, generator=g)
     chol = torch.tensor([[1.0, 0.0, 0.0], [0.2, 0.6, 0.0], [0.0, 0.1, 0.5]])
-    out = noise.add_gaussian_noise(xn, chol, seed=99, step=4)
+    cov, mean = chol @ chol.T, torch.tensor([0.1, -0.2, 0.3])
+    out = noise.add_gaussian_noise(xn, cov, mean, seed=99, step=4)
     z = noise.normals_plain(99, noise.TAG_PROPAGATE, 4, 1000, 3)
-    torch.testing.assert_close(out, xn + z @ chol.T, rtol=0, atol=0)
+    torch.testing.assert_close(out, xn + z @ chol_lower(cov).T + mean,
+                               rtol=0, atol=0)

@@ -327,3 +327,88 @@ def test_plain_twins_on_zero_and_one_steps():
     assert float(ll) == 0.0 and outs is None
     ll, outs = tk.ekf_scan_plain(ekf, torch.zeros(1, 2), traj=True)
     assert float(ll) < 0.0 and [o.shape[0] for o in outs] == [1] * 7
+
+
+def _cv_h(r1, T, seed=0):
+    """Kernel H's inputs on the CV model without drives: P0 = 0.5 I,
+    R1 = r1 I, R2 = I, y standard normal."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(T, 2, generator=g), None, None, torch.zeros(4),
+            0.5 * torch.eye(4), r1 * torch.eye(4), _t(R2), _t(A4), _t(C4),
+            1.0)
+
+
+@pytest.mark.parametrize("r1, T, frozen", [(0.1, 300, True),
+                                           (1e-4, 2000, True),
+                                           (0.1, 50, False)])
+def test_h_freeze_step_splits_prefix_and_tail(r1, T, frozen):
+    """The step from which kernel H runs its parallel tail: the twin's
+    R(t|t-1), S and K are the same at every step from the last Riccati
+    update on, and moved at the update before; R1 = 1e-4 I (G close to 1)
+    freezes later; at T = 50 nothing freezes and the prefix is all."""
+    args = _cv_h(r1, T)
+    tf = tk.akf_freeze_step(*args[4:], T)
+    _, (x, R, xt, Rt, e, S, K) = tk.akf_scan_plain(*args, traj=True)
+    if not frozen:
+        assert tf == T
+        return
+    assert 50 < tf < T
+    for M in (R, Rt, S, K):
+        assert all(torch.equal(M[t], M[tf - 1]) for t in range(tf, T))
+    assert not torch.equal(R[tf - 2], R[tf - 1])
+
+
+def test_h_tail_reassociation_with_g_close_to_one():
+    """The tail's scan as kernel H computes it, in float32 PyTorch ops: 256
+    chunks of L steps, each run from zero (chunk 0 from x(t_f)), the
+    chunk ends combined by a Kogge-Stone scan whose level d multiplies by
+    G^{L 2^d} (G^L by squaring), then every chunk rerun from its start.
+    At G close to 1 (CV, R1 = 1e-4 I) the states stay within the
+    kernel-to-twin bounds of the serial recursion, and no farther from
+    the float64 recursion than the serial float32 one is."""
+    T = 5000
+    ys, *_, P0, R1_, R2_, A, C, alpha = _cv_h(1e-4, T)
+    eye = torch.eye(2)
+    R, conv = P0, False
+    while not conv:
+        _, _, Kt, _, _, R, conv = tk._riccati(R, A, C, R1_, R2_, alpha, eye)
+    KtAt = Kt @ A.mT
+    G = A.mT - C.mT @ KtAt
+    b = ys @ KtAt
+    x0 = torch.randn(4, generator=torch.Generator().manual_seed(1))
+
+    def serial(G, b, x0):
+        xs, x = [], x0
+        for t in range(b.shape[0]):
+            xs.append(x)
+            x = x @ G + b[t]
+        return torch.stack(xs)
+
+    P = 256
+    L = -(-T // P)
+    nc = -(-T // L)
+    bp = torch.cat([b, b.new_zeros(nc * L - T, 4)]).reshape(nc, L, 4)
+    s = torch.zeros(nc, 4)
+    s[0] = x0
+    for l in range(L):
+        s = s @ G + bp[:, l]
+    H = torch.eye(4)
+    base, e = G.clone(), L
+    while e:
+        if e & 1:
+            H = H @ base
+        e >>= 1
+        base = base @ base
+    d = 0
+    while (1 << d) < nc:
+        o = 1 << d
+        s = torch.cat([s[:o], s[o:] + s[:-o] @ H])
+        H, d = H @ H, d + 1
+    starts = torch.cat([x0[None], s[:-1]])
+    chunked = torch.cat([serial(G, bp[k], starts[k]) for k in range(nc)])[:T]
+    want = serial(G, b, x0)
+    torch.testing.assert_close(chunked, want, rtol=2e-4, atol=1e-5)
+    truth = serial(G.double(), b.double(), x0.double())
+    err_chunked = float((chunked.double() - truth).abs().max())
+    err_serial = float((want.double() - truth).abs().max())
+    assert err_chunked <= max(2 * err_serial, 1e-6)
