@@ -21,7 +21,8 @@ exits non-zero without its result lines):
    tensors: kernel A, PF ll within 1 % of the exact KF ll; median time of
    5 calls.  Then N = 1e6, T = 200 with the same check.
 5. unfused path: ``pf.forward_trajectory`` at N = 1e5, T = 100 with
-   ``noise_backend="kernel"`` (kernels B, C, D), within 1 % of the KF;
+   ``noise_backend="kernel"`` (kernels B, C, D; each B resample after one
+   launch of E's slot stage), within 1 % of the KF;
    a second seeded call bitwise equal to the first; D's compiled form on
    the predict route; launches and host synchronizations a step
    (``torch.profiler``).
@@ -30,7 +31,8 @@ exits non-zero without its result lines):
    the route and one launch each of kernels K and F per call at B = 1024
    and B = 8192; ll against a float64 CPU oracle; median time of 5.
 7. the temporal-parallel KF (bench.py:724-736): kernel K's filter and
-   smooth scans against their twin at T = 1e5; ``loglik``,
+   smooth scans against their twin at T = 1e5, two calls bitwise equal,
+   their CUDA-event and device times; ``loglik``,
    ``forward_trajectory`` and ``parallel_rts_smooth`` on CUDA tensors
    against float64 CPU references at T = 2000, 1e5 and 1e6; median time
    of 5 ``loglik`` calls at T = 1e5.
@@ -83,18 +85,22 @@ exits non-zero without its result lines):
    the loglik mode's ll; the scalar-density ll within 1 % of the mean of
    3 sequential-route runs; each mode against its twin at T = 200 (no
    noise, the same Philox stream, the lattice case); medians of 5.
-14. kernel E against its twin at N = 1e5, nx = 2 and 8, random, U^20 and
-   single-particle weights, bitwise; ``pf.forward_trajectory`` with
-   ``exact_resample=True`` at N = 1e5, T = 100: one E launch a resample,
-   ll within 1 % of the KF, bitwise equal to the kernel-B run.
+14. kernel E (weights to the resampled cloud in one launch) and its slot
+   stage against their twins at N = 1e5 and 1e5 + 3, f32 and f64, nx = 2
+   and 8, random, U^20 and single-particle weights, bitwise; an exact
+   resample (``fused_systematic_gather``): at most 3 launches and no host
+   sync, its host-clock median, E's device time; ``pf.forward_trajectory``
+   with ``exact_resample=True`` at N = 1e5, T = 100: one E launch a
+   resample and no slot stage, ll within 1 % of the KF, bitwise equal to
+   the kernel-B run (one slot stage and one B a resample).
 15. ``AuxiliaryParticleFilter`` ``forward_trajectory`` at N = 1e5,
    T = 1000 (the APF never scores y[0], about 1 % of |ll| at T = 100) and
    ``AdvancedParticleFilter.loglik`` at T = 100, each with kernel B and
    with E (``exact_resample``), bitwise equal, ll within 1 % of the KF.
 16. kernel K's whole-element mode (``filter_scan_full``) against its
    twin on generic filtering elements at T = 1e5, nx = 2 and 8, and at
-   the time-sharded path's shape, T = 1e6, nx = 2 (all five stacks); its
-   time at T = 1e6, nx = 2.
+   the time-sharded path's shape, T = 1e6, nx = 2 (all five stacks); two
+   calls bitwise equal; its CUDA-event and device times at T = 1e6.
 17. the time-sharded KF and RTS smoother (parallel/sharded.py) on a world
    of size 1 on NCCL at T = 1e6: one K-full launch a call, ll within 1e-4
    of phase 7's float64 CPU reference; at T = 2000 the filtered and
@@ -167,48 +173,113 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, name, reps=20):
-    """Device ms a call of the kernels whose name holds ``name``, by
-    ``torch.profiler`` over ``reps`` calls after a warm-up; None where the
-    profiler records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def traced(fn, reps=1):
+    """``torch.profiler``'s events (CPU and CUDA) of ``reps`` calls of
+    ``fn`` and a synchronize, after a warm-up call and one warm-up step of
+    the profiler's own schedule: a trace that starts cold now and then
+    misses its first kernels.  The schedule's own step annotation
+    (``ProfilerStep#``, on the device timeline too) is left out."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
                  acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e for e in prof.events() if not e.name.startswith("ProfilerStep")]
+
+
+def device_ms(fn, name, reps=20):
+    """Device ms a call of the kernels whose name holds ``name``, by
+    ``torch.profiler`` over ``reps`` calls (``traced``); None where the
+    profiler records no device time."""
+    from torch.autograd import DeviceType
+
+    us = sum(e.time_range.elapsed_us() for e in traced(fn, reps)
              if e.device_type == DeviceType.CUDA and name in e.name)
     return us / 1e3 / reps if us > 0 else None
 
 
 def step_profile(fn, T):
-    """Launches (device kernels) and host synchronizations a step of one
-    call of ``fn`` over T steps, by ``torch.profiler`` after a warm-up:
-    ``cudaStreamSynchronize``/``cudaDeviceSynchronize`` calls (less the
-    profiler's closing one) and device-to-host copies, each per step."""
+    """Launches (device kernels), host synchronizations and device-to-host
+    copies a step of one call of ``fn`` over T steps, by ``torch.profiler``
+    (``traced``): ``cudaStreamSynchronize``/``cudaDeviceSynchronize``
+    calls less the trace's own closing one, each per step.  None where
+    the trace holds not even that closing synchronize: the profiler
+    recorded nothing of the CUDA runtime, and its counts would be
+    zeros that measured nothing."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = prof.events()
+    ev = traced(fn)
     dev_ev = [e.name for e in ev if e.device_type == DeviceType.CUDA]
     kern = sum(1 for n in dev_ev if not n.startswith(("Memcpy", "Memset")))
     dtoh = sum(1 for n in dev_ev if "DtoH" in n)
     syncs = sum(1 for e in ev if e.device_type == DeviceType.CPU
                 and e.name in ("cudaStreamSynchronize",
                                "cudaDeviceSynchronize")) - 1
+    if syncs < 0:
+        return None
     return dict(launches_a_step=kern / T, syncs_a_step=syncs / T,
                 dtoh_a_step=dtoh / T)
+
+
+#: PyTorch ops that put no work on the card: allocations (views are told
+#: by their schema)
+_NO_LAUNCH_OPS = ("aten.empty", "aten.empty_like", "aten.empty_strided",
+                  "aten.new_empty", "aten.new_empty_strided")
+
+
+def dispatched_launches(fn, kernels, device_type="cuda"):
+    """The launches of one call of ``fn`` counted without the profiler:
+    the PyTorch ops it dispatches on ``device_type`` tensors, less views
+    and allocations, which launch nothing, and the launches that the
+    port's wrappers count.  Returns the count and the ops' names."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    names = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            on_dev = any(isinstance(t, torch.Tensor)
+                         and t.device.type == device_type
+                         for t in tree_flatten((args, kwargs, out))[0])
+            if on_dev and not func.is_view \
+                    and func.name().split(".")[0].replace("::", ".") \
+                    not in _NO_LAUNCH_OPS:
+                names.append(func.name())
+            return out
+
+    before = {k.name: k.launches for k in kernels}
+    with Ops():
+        fn()
+    for k in kernels:
+        n = k.launches - before[k.name]
+        names += [k.name] * n
+        k.launches = before[k.name]
+    return len(names), names
+
+
+def returns_before_device(fn, cycles=200_000_000):
+    """Whether a call of ``fn`` returns while work queued before it still
+    runs on the card (a spin of ``cycles`` clocks, about 0.1 s): a call
+    that synchronizes the host with the card in any way, PyTorch's or a
+    library's, cannot.  Needs no profiler."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+    busy = torch.cuda.Event()
+    busy.record()
+    fn()
+    ahead = not busy.query()
+    torch.cuda.synchronize()
+    return ahead
 
 
 def sm_clock_mhz(fn, reps):
@@ -277,13 +348,11 @@ def combine_ops(combine, shape):
     return _Count.n
 
 
-def scan_combines(n, chunk=16):
-    """Combines kernel K does for n elements: per level, each chunk's
-    reduction and the in-chunk scan with its prefix, csrc/assoc_scan.cu."""
-    if n <= chunk:
-        return n - 1
-    nch = -(-n // chunk)
-    return (n - nch) + scan_combines(nch, chunk) + (n - 1)
+def scan_combines(n):
+    """Combines kernel K does for n elements, csrc/assoc_scan.cu: each
+    thread's run reduced and walked again with its prefix, about 2 n (the
+    block and grid scans over the runs' aggregates add under 1 %)."""
+    return 2 * n - 1
 
 
 def register_table(log):
@@ -797,11 +866,12 @@ def ffbs_phase(dev, kernels, stats, launches, smi, data, model, kf):
         xbs.append(xb)
     path = {k.name: k.launches for k in kernels}
     for name in ("ffbs_backward", "systematic_gather", "normal",
-                 "add_gaussian_noise"):
+                 "add_gaussian_noise", "systematic_slots"):
         require(path[name] >= 1, f"phase 11 launched {name}")
     require(path["ffbs_backward"] == 2, f"one J a call: {path}")
     launches["ffbs_backward"] = path["ffbs_backward"]
-    for name in ("systematic_gather", "normal", "add_gaussian_noise"):
+    for name in ("systematic_gather", "normal", "add_gaussian_noise",
+                 "systematic_slots"):
         launches[name] += path[name]
     N0, T0, _, _, pf0, uc0, yc0 = cases[0]
     prof11 = step_profile(lambda: pf0.smooth(
@@ -1088,42 +1158,103 @@ def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
         log(f"A {name}", f"N={N} T={T_MAIN}: {stats[name]}")
 
     # ---- 14. kernel E -------------------------------------------------------
+    # the whole resample and the slot stage against their twins on the card,
+    # bitwise (the twins repeat the kernel's summation order and roundings
+    # op for op); r a device scalar of the weights' dtype
+    SL = resample_v2.SYSTEMATIC_SLOTS
     worst_e = 0.0
-    for nx in (2, 8):
-        x = randn(N, nx)
-        for kind in ("random", "skewed", "single"):
-            we = torch.rand(N, generator=gcpu, dtype=torch.float64)
-            if kind == "skewed":
-                we = we ** 20
-            elif kind == "single":
-                we = torch.zeros(N, dtype=torch.float64)
-                we[N // 3] = 1.0
-            K = ors._systematic_slots((we / we.sum()).to(dev), torch.tensor(
-                0.37, dtype=torch.float64, device=dev), N)
-            out, j = resample_v2.systematic_index_gather(x, K)
-            ref, jr = resample_v2.systematic_index_gather_plain(x, K)
-            require(torch.equal(out, ref) and torch.equal(j, jr),
-                    f"E bitwise, nx={nx} {kind}")
-            require(kind != "single" or bool((j == N // 3).all()),
-                    "E single particle")
-            worst_e = max(worst_e, float((out - ref).abs().max()))
-            if nx == 2 and kind == "skewed":
-                x2, K2 = x, K
-    ar = torch.arange(N, dtype=torch.int32, device=dev)
-    lib_e = cuda_ms(lambda: x2.index_select(0, torch.searchsorted(
-        K2, ar, right=True).clamp_(max=N - 1)), 20)
+    for n in (N, N + 3):
+        for wdt in (torch.float32, torch.float64):
+            for kind in ("random", "skewed", "single"):
+                we = torch.rand(n, generator=gcpu, dtype=torch.float64)
+                if kind == "skewed":
+                    we = we ** 20
+                elif kind == "single":
+                    we = torch.zeros(n, dtype=torch.float64)
+                    we[n // 3] = 1.0
+                we = (we / we.sum()).to(wdt).to(dev)
+                r = torch.rand((), generator=gcpu, dtype=wdt).to(dev)
+                K = resample_v2.systematic_slots(we, r, n)
+                require(torch.equal(K, resample_v2.systematic_slots_plain(
+                    we, r, n)), f"E's slot stage bitwise, N={n} {wdt} {kind}")
+                for nx in (2, 8):
+                    x = randn(n, nx).to(wdt)
+                    out, j = resample_v2.systematic_resample(x, we, r)
+                    ref, jr = resample_v2.systematic_resample_plain(x, we, r)
+                    require(torch.equal(out, ref) and torch.equal(j, jr),
+                            f"E bitwise, N={n} nx={nx} {wdt} {kind}")
+                    require(kind != "single" or bool((j == n // 3).all()),
+                            "E single particle")
+                    worst_e = max(worst_e, float((out - ref).abs().max()))
+                if n == N and wdt == torch.float32 and kind == "skewed":
+                    x2, we2, r2 = randn(N, 2), we, r
+    # an exact resample as the filters call it: the offset drawn on the
+    # card, then E; launches and host syncs of one call.  Counted without
+    # the profiler, which on some machines records nothing: the ops and
+    # wrapper launches it dispatches, whether it returns ahead of the card,
+    # and the sync debug mode, which raises on any sync PyTorch makes
+    ge = torch.Generator(device=dev)
+    exact = lambda: resample_v2.fused_systematic_gather(  # noqa: E731
+        x2, we2, ge.manual_seed(1))
+    n_ops, ops_e = dispatched_launches(exact, kernels)
+    ahead_e = returns_before_device(exact)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exact()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(1 <= n_ops <= 3 and ahead_e,
+            f"an exact resample at N={N}: launches {ops_e}, returns ahead "
+            f"of the card {ahead_e}")
+    # and by torch.profiler where it traces: the most of three traces that
+    # caught a kernel (a trace now and then loses kernels); the count of
+    # synchronizations less an empty call's (the trace's own)
+    profs = [p for p in (step_profile(exact, 1) for _ in range(3))
+             if p is not None and p["launches_a_step"] >= 1]
+    empty = step_profile(lambda: None, 1)
+    prof_e = None
+    if profs and empty is not None:
+        prof_e = {k: max(p[k] for p in profs) for k in profs[0]}
+        prof_e["syncs_a_step"] -= empty["syncs_a_step"]
+        require(prof_e["launches_a_step"] <= 3
+                and prof_e["syncs_a_step"] == 0,
+                f"an exact resample at N={N} (torch.profiler): {prof_e}")
+    else:
+        log("E systematic_resample", "torch.profiler traced no kernel of "
+            "an exact resample: its launches are the dispatch count")
+    call_e = lambda: resample_v2.systematic_resample(x2, we2, r2)  # noqa
     stats["systematic_index_gather"] = dict(
         max_abs_err=worst_e, N=N, nx=2,
-        # searchsorted + index_select is two PyTorch calls, not one
+        # no one PyTorch call resamples from the weights (cumsum, the slot
+        # formula, cummax, searchsorted and index_select are five)
         library_ms=None,
-        ms=cuda_ms(lambda: resample_v2.systematic_index_gather(x2, K2), 50),
-        plain_ms=cuda_ms(lambda: resample_v2.systematic_index_gather_plain(
-            x2, K2), 20),
-        **bound(4 * (2 * N * 2 + 2 * N),
-                N * (2 * math.ceil(math.log2(N)) + 2)))
-    log("E systematic_index_gather", f"bitwise at N={N}, nx 2 and 8, random,"
-        f" U^20 and single-particle weights; searchsorted + index_select "
-        f"(two calls) {lib_e:.4f} ms; {stats['systematic_index_gather']}")
+        ms=cuda_ms(call_e, 50),
+        device_ms=device_ms(call_e, "systematic_kernel"),
+        host_ms=host_median_ms(exact, 50),
+        plain_ms=cuda_ms(lambda: resample_v2.systematic_resample_plain(
+            x2, we2, r2), 5),
+        exact_resample_launches=n_ops,
+        exact_resample_profiled=prof_e,
+        # the weights and the rows read, j and the rows written; a float64
+        # add a weight, the slot formula, the search and the row copy
+        **bound(4 * (N + 2 * N * 2 + N),
+                N * (1 + 4 + 2 * math.ceil(math.log2(N)) + 2)))
+    call_s = lambda: resample_v2.systematic_slots(we2, r2, N)  # noqa: E731
+    stats["systematic_slots"] = dict(
+        max_abs_err=0.0, N=N, library_ms=None,
+        ms=cuda_ms(call_s, 50),
+        device_ms=device_ms(call_s, "systematic_kernel"),
+        plain_ms=cuda_ms(lambda: resample_v2.systematic_slots_plain(
+            we2, r2, N), 5),
+        # the weights read, K written; a float64 add and the slot formula
+        **bound(4 * 2 * N, N * (1 + 4)))
+    log("E systematic_resample", f"E and its slot stage bitwise at N={N} and "
+        f"{N + 3}, f32 and f64, nx 2 and 8, random, U^20 and single-particle "
+        f"weights; an exact resample launches {ops_e}, returns ahead of the "
+        f"card {ahead_e}, by torch.profiler {prof_e}; "
+        f"{stats['systematic_index_gather']}; slot stage "
+        f"{stats['systematic_slots']} ({smi})")
     u14, y14, ll_kf14 = data(100, seed=14)
     u14c, y14c = u14.float().to(dev), y14.float().to(dev)
     for k in kernels:
@@ -1136,7 +1267,8 @@ def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
     rel14 = abs(float(sol_e.ll) - ll_kf14) / abs(ll_kf14)
     require(path14["systematic_index_gather"] == n14 >= 1
             and path14["systematic_gather"] == 0 and rel14 < 0.01
-            and Bk.launches == n14,
+            and path14["systematic_slots"] == 0 and Bk.launches == n14
+            and SL.launches == n14,
             f"exact_resample: E launches {path14} vs {n14} resamples, B "
             f"{Bk.launches}; ll rel {rel14:.3g}")
     require(all(torch.equal(getattr(sol_e, f), getattr(sol_b, f))
@@ -1197,7 +1329,10 @@ def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
     require(rel_a < 0.01 and rel_adv < 0.01,
             f"APF ll {float(sol_a.ll)} vs KF {ll_kf} (rel {rel_a:.3g}), "
             f"advanced ll {ll_adv} vs KF {ll_kf15} (rel {rel_adv:.3g})")
+    require(path15["systematic_slots"] >= 1,
+            f"phase 15: the B runs take E's slot stage ({path15})")
     launches["systematic_index_gather"] += path15["systematic_index_gather"]
+    launches["systematic_slots"] += path15["systematic_slots"]
     log("APF", f"N={N} T={T_MAIN}: ll {float(sol_a.ll)} KF {ll_kf} rel "
         f"{rel_a:.3g}, one forward_trajectory {t_apf * 1e3:.1f} ms; advanced "
         f"PF T={T_ADV}: ll {ll_adv} KF {ll_kf15} rel {rel_adv:.3g}; E runs "
@@ -1309,14 +1444,18 @@ def sharded_phases(dev, kernels, stats, launches, smi, kf, kf32, data, model,
     ops_full = scan_combines(T_SHARD) * combine_ops(
         temporal._filter_combine_soa,
         (("m", 2), ("v", 2), ("m", 2), ("v", 2), ("m", 2)))
+    call_full = lambda: assoc_scan.full_scan(x_full, 2)  # noqa: E731
+    require(torch.equal(call_full(), call_full()),
+            "K-full: two calls give the same bits")
     stats["assoc_scan_full"] = dict(
         max_abs_err=worst,
-        ms=cuda_ms(lambda: assoc_scan.full_scan(x_full, 2), 20),
+        ms=cuda_ms(call_full, 20),
+        device_ms=device_ms(call_full, "scan_kernel"),
         plain_ms=cuda_ms(lambda: assoc_scan.filter_scan_full_plain(*el), 1),
         library_ms=None,  # PyTorch has no scan of a custom combine
         **bound(2 * 4 * E * T_SHARD, ops_full))
-    log("K-full assoc_scan_full", f"T={T_SHARD} nx=2: "
-        f"{stats['assoc_scan_full']} ({smi})")
+    log("K-full assoc_scan_full", f"T={T_SHARD} nx=2: two calls bitwise "
+        f"equal; {stats['assoc_scan_full']} ({smi})")
 
     # ---- 17. time-sharded KF and RTS on a world of size 1 on NCCL ----------
     mesh = sh.particle_mesh(device=dev)
@@ -1579,7 +1718,7 @@ def main():
                ffbs.FFBS_BACKWARD, assoc_scan.ASSOC_SCAN,
                pf_scan.PF_MOMENTS_SCAN, pf_scan.PF_SEGMENT_SCAN,
                pf_scan.PF_DENSITY_SCAN, resample_v2.SYSTEMATIC_INDEX_GATHER,
-               assoc_scan.ASSOC_SCAN_FULL]
+               assoc_scan.ASSOC_SCAN_FULL, resample_v2.SYSTEMATIC_SLOTS]
     stats = {k.name: {} for k in kernels}
     launches = {}
 
@@ -1728,8 +1867,8 @@ def main():
         f"{traceD:.3f} s, build {buildD:.3f} s apart from the calls; "
         f"{stats['add_gaussian_noise']} ({smi})")
 
-    # B: bitwise (the kernel copies values; K comes from the same plain
-    # _systematic_slots).
+    # B: bitwise (the kernel copies values; both take the same K, from
+    # _systematic_slots, E's slot stage on the card).
     gcpu = torch.Generator().manual_seed(SEED)
     worst = 0.0
     for nx in (2, 4):
@@ -1872,6 +2011,12 @@ def main():
         require(k.launches >= 1, f"kernel {k.name} launched in the main run")
         require(k.name != "pf_loglik_scan" or k.launches == 1,
                 "kernel A launched once")
+    # each of B's resamples takes its slot boundaries from E's slot stage
+    SL = resample_v2.SYSTEMATIC_SLOTS
+    require(SL.launches == kernels[1].launches,
+            f"E's slot stage once a B resample: {SL.launches} against "
+            f"{kernels[1].launches}")
+    launches[SL.name] = SL.launches
     # two seeded calls agree bit for bit, resampling included; PyTorch's
     # 1-D cumsum on the card (CUB's single-pass scan) is what did not
     again = pfk.forward_trajectory(u5.float().to(dev), y5.float().to(dev),
@@ -2062,24 +2207,29 @@ def main():
         worst = max(worst, float((gm - rm).abs().max()),
                     float((gM - rM).abs().max()))
     x_f = torch.stack(temporal._leaves(elems_f), -1)
+    x_s = torch.stack(temporal._leaves(elems_s), -1)
     E = x_f.shape[1]
+    call_f = lambda: assoc_scan.plane_scan(x_f, 2, assoc_scan.FILTER)  # noqa
+    call_s = lambda: assoc_scan.plane_scan(x_s, 2, assoc_scan.SMOOTH)  # noqa
+    # one fixed association (no atomics): two calls give the same bits
+    require(torch.equal(call_f(), call_f()) and torch.equal(call_s(),
+                                                           call_s()),
+            "kernel K: two calls give the same bits (filter, smooth)")
     ops_k = scan_combines(T_PAR) * combine_ops(
         temporal._filter_combine_soa,
         (("m", 2), ("v", 2), ("m", 2), ("v", 2), ("m", 2)))
     stats["assoc_scan"] = dict(
         max_abs_err=worst,
-        ms=cuda_ms(lambda: assoc_scan.plane_scan(x_f, 2, assoc_scan.FILTER),
-                   50),
+        ms=cuda_ms(call_f, 50),
+        device_ms=device_ms(call_f, "scan_kernel"),
+        smooth_ms=cuda_ms(call_s, 50),
+        smooth_device_ms=device_ms(call_s, "scan_kernel"),
         plain_ms=cuda_ms(lambda: assoc_scan.filter_scan_p_plain(elems_f), 3),
         library_ms=None,  # PyTorch has no associative scan of a custom op
         **bound(4 * T_PAR * (E + 6), ops_k))
-    smooth_ms = cuda_ms(lambda: assoc_scan.plane_scan(
-        torch.stack(temporal._leaves(elems_s), -1), 2, assoc_scan.SMOOTH),
-        50)
-    log("K assoc_scan", f"filter T={T_PAR}: {stats['assoc_scan']}; smooth "
-        f"scan {smooth_ms:.4f} ms (with its stacking copy); "
-        f"{ops_k // scan_combines(T_PAR)} operations a filter combine, "
-        f"{scan_combines(T_PAR)} combines")
+    log("K assoc_scan", f"filter and smooth T={T_PAR}: {stats['assoc_scan']};"
+        f" two calls bitwise equal; {ops_k // scan_combines(T_PAR)} "
+        f"operations a filter combine, {scan_combines(T_PAR)} combines")
 
     # the temporal-parallel main path
     for k in kernels:

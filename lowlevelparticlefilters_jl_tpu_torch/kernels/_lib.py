@@ -45,7 +45,8 @@ _SIGNATURES = {
     "llpf_normal": [_P, _I64, _U64, _U32, _U32, _P],
     "llpf_add_gaussian_noise": [_P, _P, _P, _P, _P, _I64, _I, _U32, _P],
     "llpf_systematic_gather": [_P, _P, _P, _I64, _I, _I, _P],
-    "llpf_systematic_index_gather": [_P, _P, _P, _P, _I64, _I, _I, _P],
+    "llpf_systematic_slots": [_P, _P, _P, _P, _I64, _P, _I, _I, _I, _P],
+    "llpf_systematic_resample": [_P] * 6 + [_I64, _P, _I, _I, _I, _P],
     "llpf_pf_scan_grid": [_I, _I, _I, _I, _P],
     "llpf_grid_sync_probe": [_P, _I, _I, _I, _I, _P],
     "llpf_pf_scan_scratch": [_I, _P, _P],

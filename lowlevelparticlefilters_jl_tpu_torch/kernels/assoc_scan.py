@@ -14,9 +14,11 @@
 
 Elements come in as the plane structures of ``parallel/temporal.py``.  On
 CUDA the planes are stacked once into an element-major [T, E] f32
-tensor and scanned by ``csrc/assoc_scan.cu``; on the CPU the plain twin
-is the Hillis–Steele :func:`parallel.temporal.associative_scan` with the
-same combine, which is also the route off the kernel's gate.
+tensor and scanned by ``csrc/assoc_scan.cu`` in one cooperative launch
+(runs of consecutive steps a thread, block and grid prefixes in a fixed
+tree, so two calls give the same bits); on the CPU the plain twin is the
+Hillis–Steele :func:`parallel.temporal.associative_scan` with the same
+combine, which is also the route off the kernel's gate.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ def plane_scan(x: torch.Tensor, nx: int, kind: int) -> torch.Tensor:
         raise ValueError(f"assoc_scan: nx must be 1..{MAX_NX} and E "
                          f"{n_elements(nx, kind)}, got nx={nx}, E={E}")
     require_cuda_f32("elements", x)
+    x = _aligned(x)
     out = torch.empty((T, nx + nx * nx), dtype=torch.float32,
                       device=x.device)
     scratch = _scratch(T, E, x)
@@ -67,9 +70,14 @@ def plane_scan(x: torch.Tensor, nx: int, kind: int) -> torch.Tensor:
 
 
 def _scratch(T: int, E: int, like: torch.Tensor) -> torch.Tensor:
-    # each level of the chunk recursion keeps ceil(n / 16) aggregates
-    return torch.empty(E * (T // 8 + 64), dtype=torch.float32,
+    # one aggregate a block; the co-resident grid has at most 8192 blocks
+    return torch.empty(E * min(T, 8192), dtype=torch.float32,
                        device=like.device)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    # the kernel reads records with 16-byte loads from a 16-byte aligned base
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def full_scan(x: torch.Tensor, nx: int) -> torch.Tensor:
@@ -81,6 +89,7 @@ def full_scan(x: torch.Tensor, nx: int) -> torch.Tensor:
         raise ValueError(f"assoc_scan_full: nx must be 1..{MAX_NX} and E "
                          f"{n_elements(nx, FILTER)}, got nx={nx}, E={E}")
     require_cuda_f32("elements", x)
+    x = _aligned(x)
     out = torch.empty_like(x)
     scratch = _scratch(T, E, x)
     check(library().lib.llpf_assoc_scan_full(

@@ -35,7 +35,10 @@ def _cumsum(w: torch.Tensor) -> torch.Tensor:
     bit can move a slot boundary K and so the resampled cloud.  Here the
     weights are scanned as rows of a [≥2, 1024] view (PyTorch's per-row
     scan, one fixed order), and the row totals likewise, as the first
-    row of a [2, rows] view."""
+    row of a [2, rows] view.  The slot boundaries of 1-D weights on the
+    card take kernel E's slot stage instead (:func:`_systematic_slots`);
+    the particle-sharded PF's global prefix (parallel/sharded.py) keeps
+    this one."""
     if not w.is_cuda or w.ndim != 1:
         return torch.cumsum(w, -1)
     n = w.shape[0]
@@ -56,7 +59,15 @@ def _systematic_slots(we: torch.Tensor, r: torch.Tensor, M: int
 
     A floating-point cumsum is not monotone under rounding for heavily
     skewed weights, so K is repaired with a running max, as in the JAX
-    package; every gather assumes sorted K."""
+    package; every gather assumes sorted K.  One-dimensional weights on
+    the card take kernel E's slot stage (kernels/resample_v2.py), the
+    arithmetic of E's whole resample, so kernel B's gather and E give the
+    same cloud; K, an integer function of the weights, carries no
+    gradient."""
+    if we.is_cuda and we.ndim == 1:
+        from ..kernels.resample_v2 import systematic_slots
+
+        return systematic_slots(we.detach(), r, M)
     bins = _cumsum(we)
     total = bins[..., -1:]
     K = torch.ceil(bins * M / total - r).to(torch.int32)
@@ -141,9 +152,10 @@ def resample_gather(x: torch.Tensor, we: torch.Tensor, generator=None,
                     exact: bool = False) -> torch.Tensor:
     """``x[resample(we)]`` as the particle filters resample: systematic
     through kernel B's gather, or with ``exact`` through kernel E, which
-    forms the index vector ``j`` and gathers ``x[j]`` in one launch (the
-    JAX package's ``exact_resample`` branch); the two draw the same r and
-    K, so their results are bitwise equal.  Other strategies index, and so
+    goes from the weights to the index vector ``j`` and the rows ``x[j]``
+    in one launch (the JAX package's ``exact_resample`` branch); the two
+    draw the same r and compute the same K, so their results are bitwise
+    equal.  Other strategies index, and so
     does systematic resampling of particles that autograd records
     (``routing._needs_grad``): the kernels are forward-only."""
     from ..routing import _needs_grad

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Probe kernels C (normal draws), G, H, I (whole scans), A (the
-bootstrap PF in one launch) and D (the PF's propagate step) on the card:
+bootstrap PF in one launch), D (the PF's propagate step), E and B (the
+systematic resample) and K (the temporal-parallel scans) on the card:
 device time against host time, the compiled step loops, A's time a step,
-the cost of a grid sync, H's prefix and tail, D's step.
+the cost of a grid sync, H's prefix and tail, D's step, E's resample and
+K's launches.
 
     python3 scripts/torch_kernel_probe.py [noise] [scan] [pf] [sync] [akf] [prop]
-        [--out DIR]
+        [resample] [kscan] [--out DIR]
 
 Needs one CUDA card.  Runs the named sections (all without arguments).
 It reads the kernels of the checkout it lies in, so a copy of it in
@@ -52,7 +54,18 @@ tree only, and reads neither G's nor H's step loop.
   by ``torch.profiler``, its launches and host synchronizations; then
   ``forward_trajectory`` at N = 1e5, T = 100 (``chip_smoke.py`` phase 5)
   and ``pf.smooth`` at N = M = 1000, T = 500 (phase 11), host-clock
-  medians of 5 and 3 calls, with launches and synchronizations a step.
+  medians of 5 and 3 calls, with launches and synchronizations a step;
+- ``resample``: the exact systematic resample (``fused_systematic_gather``,
+  kernel E's route), the default one (``resample_systematic_gather``,
+  kernel B's) and the slot boundaries alone (``ops.resample.
+  _systematic_slots``) at N = 1e5, nx = 2, float32: the host-clock median
+  ms of a call with a synchronize (200 calls), ms by CUDA events (50 back
+  to back), launches and host synchronizations a call and each device
+  kernel's time by ``torch.profiler``;
+- ``kscan``: kernel K's three modes (filter, smooth, whole elements) at
+  T = 1e5 and 1e6, nx = 2, on generic elements: ms a call by CUDA events
+  (20 calls), each launch of one call in order with its device time
+  (``torch.profiler``), and whether two calls give the same bits.
 
 Prints one line per measurement and, last, the card's ``nvidia-smi`` name
 and power limit.
@@ -106,19 +119,31 @@ def host_us(fn, reps=400):
     return statistics.median(times) * 1e6
 
 
-def device_kernels_ms(fn, reps=20):
-    """{kernel name: device ms a call} by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+def traced(fn, reps=1):
+    """torch.profiler's events (CPU and CUDA) of ``reps`` calls of ``fn``
+    and a synchronize, after a warm-up call and one warm-up step of the
+    profiler's own schedule (a trace that starts cold now and then misses
+    its first kernels), without the schedule's own step annotation
+    (``ProfilerStep#``, on the device timeline too)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
                  acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e for e in prof.events() if not e.name.startswith("ProfilerStep")]
+
+
+def device_kernels_ms(fn, reps=20):
+    """{kernel name: device ms a call} by torch.profiler."""
     out: dict = {}
-    for e in prof.events():
+    for e in traced(fn, reps):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             out[e.name[:60]] = (out.get(e.name[:60], 0.0)
                                 + e.time_range.elapsed_us() / 1e3 / reps)
@@ -137,26 +162,28 @@ def clock_while(fn):
     return (float(seen) if seen.isdigit() else float("nan")), ms
 
 
-def step_counts(fn, steps):
-    """Device kernels, ``cudaStreamSynchronize``/``cudaDeviceSynchronize``
-    calls (less the profiler's closing one) and device-to-host copies a
-    step of one call of ``fn`` over ``steps`` steps, by torch.profiler."""
+def _profile_counts(fn):
+    """(device kernels, synchronize calls, device-to-host copies) of one
+    call of ``fn`` and the closing synchronize, by torch.profiler."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = prof.events()
+    ev = traced(fn)
     dev_ev = [e.name for e in ev if e.device_type == DeviceType.CUDA]
     kern = sum(1 for n in dev_ev if not n.startswith(("Memcpy", "Memset")))
     dtoh = sum(1 for n in dev_ev if "DtoH" in n)
     syncs = sum(1 for e in ev if e.device_type == DeviceType.CPU
                 and e.name in ("cudaStreamSynchronize",
-                               "cudaDeviceSynchronize")) - 1
+                               "cudaDeviceSynchronize"))
+    return kern, syncs, dtoh
+
+
+def step_counts(fn, steps):
+    """Device kernels, ``cudaStreamSynchronize``/``cudaDeviceSynchronize``
+    calls and device-to-host copies a step of one call of ``fn`` over
+    ``steps`` steps, by torch.profiler; the synchronizations less those of
+    an empty call under the same profiler (its closing ones)."""
+    kern, syncs, dtoh = _profile_counts(fn)
+    syncs -= _profile_counts(lambda: None)[1]
     return (f"{kern / steps:.2f} launches, {syncs / steps:.2f} syncs, "
             f"{dtoh / steps:.2f} DtoH copies a step")
 
@@ -469,6 +496,99 @@ def sync_section(dev):
                   f"{us:.4f} us a round", flush=True)
 
 
+def launch_list(fn):
+    """[(kernel name, device ms)] of one call of ``fn`` in launch order,
+    by torch.profiler (``traced``)."""
+    ev = [e for e in traced(fn)
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    ev.sort(key=lambda e: e.time_range.start)
+    return [(e.name[:48], round(e.time_range.elapsed_us() / 1e3, 5))
+            for e in ev]
+
+
+def resample_section(dev):
+    """The exact and default systematic resamples (module doc)."""
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import _lib, resample_v2
+    from lowlevelparticlefilters_jl_tpu_torch.ops import resample as ors
+
+    _lib.library()
+    N = 100_000
+    g = torch.Generator().manual_seed(100)
+    x = torch.randn(N, 2, generator=g).to(dev)
+    we = torch.rand(N, generator=g) ** 8
+    we = (we / we.sum()).to(dev)
+    r = torch.rand((), generator=g).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    calls = (("E exact (fused_systematic_gather)",
+              lambda: resample_v2.fused_systematic_gather(x, we, gen)),
+             ("B default (resample_systematic_gather)",
+              lambda: ors.resample_systematic_gather(x, we, gen)),
+             ("slots (_systematic_slots)",
+              lambda: ors._systematic_slots(we, r, N)))
+    if hasattr(resample_v2, "systematic_resample"):
+        calls += (("E kernel alone (systematic_resample)",
+                   lambda: resample_v2.systematic_resample(x, we, r)),)
+    if hasattr(resample_v2, "STAMPS"):
+        # E's phases: block 0's clock64 at its phase boundaries (cycles
+        # from the previous stamp), the median of 20 calls
+        for tag, fn in (("E", lambda st: resample_v2.systematic_resample(
+                x, we, r, stats=st)), ("slot stage", lambda st:
+                resample_v2.systematic_slots(we, r, N, stats=st))):
+            rows = []
+            for _ in range(21):
+                st = torch.zeros(len(resample_v2.STAMPS), dtype=torch.int64,
+                                 device=dev)
+                fn(st)
+                rows.append(st.diff().tolist())
+            med = [statistics.median(c) for c in zip(*rows[1:])]
+            print(f"resample {tag} phases (block 0's cycles, median of 20): "
+                  f"{dict(zip(resample_v2.STAMPS[1:], med))}, total "
+                  f"{sum(med)}", flush=True)
+    for tag, fn in calls:
+        print(f"resample {tag} N={N} nx=2 f32: host median of 200 "
+              f"{host_ms(fn, 200):.4f} ms a call with a synchronize; "
+              f"{events_ms(fn, 50):.5f} ms by CUDA events (50 back to "
+              f"back); {step_counts(fn, 1)}; device kernels "
+              f"{device_kernels_ms(fn)}", flush=True)
+
+
+def kscan_section(dev):
+    """Kernel K's three modes (module doc)."""
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import _lib
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import assoc_scan as k
+
+    _lib.library()
+    nx = 2
+    g = torch.Generator(device=dev).manual_seed(110)
+
+    def psd(T, scale):
+        h = 0.3 * torch.randn(T, nx, nx, generator=g, device=dev)
+        return h @ h.mT + scale * torch.eye(nx, device=dev)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=dev)
+
+    for T in (100_000, 1_000_000):
+        filt = torch.cat([e.reshape(T, -1) for e in (
+            randn(T, nx, nx, scale=0.3), randn(T, nx), psd(T, 0.1),
+            randn(T, nx), psd(T, 0.1))], -1).contiguous()
+        smooth = torch.cat([e.reshape(T, -1) for e in (
+            randn(T, nx, nx, scale=0.4), randn(T, nx), psd(T, 0.0))],
+            -1).contiguous()
+        for mode, fn in (
+                ("filter", lambda: k.plane_scan(filt, nx, k.FILTER)),
+                ("smooth", lambda: k.plane_scan(smooth, nx, k.SMOOTH)),
+                ("full", lambda: k.full_scan(filt, nx))):
+            ms = events_ms(fn, 20)
+            same = torch.equal(fn(), fn())
+            launches = launch_list(fn)
+            print(f"kscan {mode} T={T} nx={nx}: {ms:.5f} ms a call by CUDA "
+                  f"events (20 back to back); two calls bitwise equal "
+                  f"{same}; {len(launches)} launches a call, device "
+                  f"{sum(d for _, d in launches):.5f} ms: {launches}",
+                  flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -482,7 +602,8 @@ def main():
         k = args.index("--out")
         out = Path(args[k + 1])
         del args[k:k + 2]
-    sections = set(args) or {"noise", "scan", "pf", "sync", "akf", "prop"}
+    sections = set(args) or {"noise", "scan", "pf", "sync", "akf", "prop",
+                             "resample", "kscan"}
     print(f"clocks: {smi('clocks.sm,clocks.max.sm')}", flush=True)
     if "noise" in sections:
         noise_section(dev)
@@ -496,6 +617,10 @@ def main():
         akf_section(dev)
     if "prop" in sections:
         prop_section(dev)
+    if "resample" in sections:
+        resample_section(dev)
+    if "kscan" in sections:
+        kscan_section(dev)
 
     print(smi("name,power.limit"), flush=True)
     return 0

@@ -1104,7 +1104,8 @@ def test_pf_density_all_minus_inf_on_card(cuda_device):
 @pytest.mark.parametrize("nx", [2, 8])
 @pytest.mark.parametrize("profile", ["random", "skewed", "single"])
 def test_index_gather_bitwise(cuda_device, nx, profile):
-    """Kernel E against its twin: j and the rows bitwise, f32 and f64."""
+    """Kernel E's index and gather against its twin: j and the rows
+    bitwise, f32 and f64 rows, from float64 weights and r = 0.37."""
     g = torch.Generator().manual_seed(nx)
     N = 100_000
     we = torch.rand(N, generator=g, dtype=torch.float64)
@@ -1113,19 +1114,93 @@ def test_index_gather_bitwise(cuda_device, nx, profile):
     elif profile == "single":
         we = torch.zeros(N, dtype=torch.float64)
         we[12345] = 1.0
-    K = trs._systematic_slots(we / we.sum(),
-                              torch.tensor(0.37, dtype=torch.float64), N)
+    we, r = we / we.sum(), torch.tensor(0.37, dtype=torch.float64)
     for dtype in (torch.float32, torch.float64):
         x = torch.randn(N, nx, generator=g, dtype=dtype)
-        out_p, j_p = resample_v2.systematic_index_gather_plain(x, K)
+        out_p, j_p = resample_v2.systematic_resample_plain(x, we, r)
         before = resample_v2.SYSTEMATIC_INDEX_GATHER.launches
-        out, j = resample_v2.systematic_index_gather(x.to(cuda_device),
-                                                     K.to(cuda_device))
+        out, j = resample_v2.systematic_resample(
+            x.to(cuda_device), we.to(cuda_device), r.to(cuda_device))
         assert resample_v2.SYSTEMATIC_INDEX_GATHER.launches == before + 1
         assert j.dtype == torch.int32
         assert torch.equal(j.cpu(), j_p) and torch.equal(out.cpu(), out_p)
     if profile == "single":
         assert bool((j == 12345).all())
+
+
+def _weights_of(profile, N, g, dtype):
+    we = torch.rand(N, generator=g, dtype=torch.float64)
+    if profile == "skewed":
+        we = we ** 20
+    elif profile == "single":
+        we = torch.zeros(N, dtype=torch.float64)
+        we[N // 3] = 1.0
+    return (we / we.sum()).to(dtype)
+
+
+@pytest.mark.parametrize("N", [1, 1000, 8191, 100_000, 100_003])
+@pytest.mark.parametrize("profile", ["random", "skewed", "single"])
+def test_systematic_resample_bitwise(cuda_device, N, profile):
+    """Kernel E from the weights to the cloud against its twin, on the
+    card and on the CPU: K, j and the rows bitwise, f32 and f64 weights and
+    rows, nx 2 and 8; N = 1, not a multiple of a tile (8192) or of a run
+    (32); one launch a call."""
+    g = torch.Generator().manual_seed(N)
+    for wdt in (torch.float32, torch.float64):
+        we = _weights_of(profile, N, g, wdt)
+        r = torch.rand((), generator=g, dtype=wdt)
+        K_p = resample_v2.systematic_slots_plain(we, r, N)
+        assert torch.equal(resample_v2.systematic_slots_plain(
+            we.to(cuda_device), r.to(cuda_device), N).cpu(), K_p)
+        for nx, xdt in ((2, wdt), (8, torch.float32), (2, torch.float64)):
+            x = torch.randn(N, nx, generator=g, dtype=xdt)
+            out_p, j_p = resample_v2.systematic_resample_plain(x, we, r)
+            before = resample_v2.SYSTEMATIC_INDEX_GATHER.launches
+            out, j = resample_v2.systematic_resample(
+                x.to(cuda_device), we.to(cuda_device), r.to(cuda_device))
+            assert resample_v2.SYSTEMATIC_INDEX_GATHER.launches == before + 1
+            assert j.dtype == torch.int32
+            assert torch.equal(j.cpu(), j_p) and torch.equal(out.cpu(), out_p)
+        if profile == "single":
+            assert bool((j == N // 3).all())
+
+
+@pytest.mark.parametrize("N,M", [(1, 1), (100_000, 100_000),
+                                 (100_003, 4097), (8193, 20_000)])
+def test_systematic_slots_bitwise(cuda_device, N, M):
+    """E's slot stage against its twin bitwise for M slots, and
+    ``_systematic_slots`` on a card's 1-D weights takes it (kernel B's
+    route): one launch."""
+    g = torch.Generator().manual_seed(M)
+    for wdt in (torch.float32, torch.float64):
+        we = _weights_of("skewed", N, g, wdt)
+        r = torch.rand((), generator=g, dtype=wdt)
+        want = resample_v2.systematic_slots_plain(we, r, M)
+        before = resample_v2.SYSTEMATIC_SLOTS.launches
+        got = trs._systematic_slots(we.to(cuda_device), r.to(cuda_device), M)
+        assert resample_v2.SYSTEMATIC_SLOTS.launches == before + 1
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+def test_exact_resample_syncs_nothing(cuda_device):
+    """An exact resample (the offset drawn on the card, kernel E) and the
+    default one (E's slot stage, kernel B) make no host synchronization,
+    and two seeded calls give the same bits."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(100_000, 2, generator=g).to(cuda_device)
+    we = _weights_of("random", 100_000, g, torch.float32).to(cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    resample_v2.fused_systematic_gather(x, we, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = resample_v2.fused_systematic_gather(x, we, gen.manual_seed(1))
+        b = resample_v2.fused_systematic_gather(x, we, gen.manual_seed(1))
+        c = trs.resample_systematic_gather(x, we, gen.manual_seed(1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[0], c)
 
 
 def test_pf_tracking_routes_on_card(cuda_device):
@@ -1157,6 +1232,52 @@ def test_pf_tracking_routes_on_card(cuda_device):
     assert resample_route.SYSTEMATIC_GATHER.launches == b0 + 59
     ll_kf = float(llpt.loglik(kf, u, y))
     assert abs(float(ll) - ll_kf) < 0.05 * abs(ll_kf)
+
+
+@pytest.mark.parametrize("nx", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_assoc_scan_every_nx_and_mode(cuda_device, nx):
+    """Kernel K at every nx, ragged T, in its three modes (filter, smooth,
+    whole elements) against the twin, rtol 2e-4, atol 2e-5 (the whole
+    elements 2e-5 of their scale); one launch each; two calls bitwise
+    equal."""
+    T = 5003
+    for kind in (0, 1):
+        el = _elements(kind, T, nx, seed=nx * 31 + kind)
+        run = assoc_scan.filter_scan if kind == 0 else assoc_scan.smooth_scan
+        ref = run(*el)
+        elc = [e.to(cuda_device) for e in el]
+        before = assoc_scan.ASSOC_SCAN.launches
+        out = run(*elc)
+        assert assoc_scan.ASSOC_SCAN.launches == before + 1
+        again = run(*elc)
+        for o, a, r in zip(out, again, ref):
+            assert torch.equal(o, a)
+            torch.testing.assert_close(o.cpu(), r, rtol=2e-4, atol=2e-5)
+    el = _elements(0, T, nx, seed=nx * 31 + 2)
+    want = assoc_scan.filter_scan_full_plain(*el)
+    n0 = assoc_scan.ASSOC_SCAN_FULL.launches
+    got = assoc_scan.filter_scan_full(*(e.to(cuda_device) for e in el))
+    assert assoc_scan.ASSOC_SCAN_FULL.launches == n0 + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4,
+                                   atol=2e-5 * (1 + float(b.abs().max())))
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2])
+def test_assoc_scan_deterministic(cuda_device, kind):
+    """Kernel K gives the same bits call after call at T = 1e5 (no atomics,
+    a fixed association), in each mode."""
+    T, nx = 100_000, 2
+    el = _elements(min(kind, 1) if kind < 2 else 0, T, nx, seed=kind)
+    x = torch.cat([e.reshape(T, -1) for e in el], -1).to(cuda_device)
+    if kind == 2:
+        call = lambda: assoc_scan.full_scan(x, nx)  # noqa: E731
+    else:
+        call = lambda: assoc_scan.plane_scan(x, nx, kind)  # noqa: E731
+    first = call()
+    assert bool(torch.isfinite(first).all())
+    for _ in range(5):
+        assert torch.equal(call(), first)
 
 
 # ---- K's whole-element mode, grad-aware routing, the sharded verbs ---------

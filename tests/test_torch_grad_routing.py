@@ -110,7 +110,8 @@ def case_A_fused(monkeypatch, u, y, At):
 def case_BDE(monkeypatch, u, y, At, exact):
     _guard(monkeypatch, noise, "add_gaussian_noise")
     _guard(monkeypatch, trs, "systematic_gather")
-    _guard(monkeypatch, resample_v2, "systematic_index_gather")
+    _guard(monkeypatch, resample_v2, "systematic_resample")
+    _guard(monkeypatch, resample_v2, "systematic_slots")
     pf = _pf(At, resample_threshold=1.0, noise_backend="kernel",
              exact_resample=exact)
     sol = pf.forward_trajectory(u, y,

@@ -6,6 +6,13 @@ The JAX entry draws the offset r from its key; the port's twin is given
 that same r, so K, j and the gathered rows are bitwise equal.  Then the
 particle filter's ``exact_resample`` branch, which takes E, against the
 default branch, which takes kernel B: a seeded run gives the same bits.
+
+On the card E sums the weights in its own fixed order
+(``resample_v2.runs_prefix``), which its twins repeat op for op: the
+order is pinned here against a loop over Python floats, and the twins'
+slot boundaries are held against JAX's ``_systematic_slots``, equal
+except where a slot's value ``cdf * M / total - r`` lies within a few
+ulps of an integer (a tie that one rounding of the prefix decides).
 """
 import jax
 import jax.numpy as jnp
@@ -13,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from lowlevelparticlefilters_jl_tpu.ops import resample as jrs
 from lowlevelparticlefilters_jl_tpu.ops.pallas.resample_v2 import (
     fused_systematic_gather as jax_fused_systematic_gather)
 import lowlevelparticlefilters_jl_tpu_torch as llpt
@@ -83,3 +91,87 @@ def test_pf_exact_resample_bitwise_equals_default():
         assert torch.equal(getattr(sols[0], name), getattr(sols[1], name))
     neff = 1.0 / (sols[0].we ** 2).sum(-1)
     assert int((neff < 0.1 * 500).sum()) >= 1
+
+
+def _runs_prefix_loop(v, run=32):
+    """kernel E's summation order over Python floats (float64): runs of
+    ``run`` summed left to right, the runs' totals by the same rule, each
+    partial offset by the inclusive prefix of the runs before it."""
+    if len(v) <= run:
+        out, a = [], 0.0
+        for x in v:
+            a = a + x
+            out.append(a)
+        return out
+    part, tot = [], []
+    for r0 in range(0, len(v), run):
+        a = 0.0
+        for x in v[r0:r0 + run]:
+            a = a + x
+            part.append(a)
+        tot.append(a)
+    before = _runs_prefix_loop(tot, run)
+    return [(before[i // run - 1] if i >= run else 0.0) + part[i]
+            for i in range(len(v))]
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1025, 33_000])
+def test_runs_prefix_is_the_kernel_order(n):
+    """The twins' prefix is the fixed order written out (bitwise), and a
+    prefix sum (within float64 rounding of ``torch.cumsum``'s)."""
+    v = np.random.default_rng(n).random(n) ** 8
+    got = resample_v2.runs_prefix(torch.tensor(v))
+    np.testing.assert_array_equal(got.numpy(), np.array(_runs_prefix_loop(
+        v.tolist())))
+    np.testing.assert_allclose(got.numpy(), np.cumsum(v), rtol=1e-13)
+
+
+def _ties(Kt, Kj, we, r, M):
+    """The slots where Kt and Kj differ, each checked to be a tie: the two
+    differ by one, and the float64 slot value ``cdf * M / total - r`` of
+    that particle, or of an earlier one with the same cdf to rounding (the
+    running max carries a boundary forward), lies within 64 ulps of the
+    weights' dtype (times M) of an integer."""
+    bad = np.nonzero(Kt != Kj)[0]
+    assert np.all(np.abs(Kt[bad].astype(np.int64) - Kj[bad]) == 1), bad[:8]
+    cdf = np.cumsum(we.astype(np.float64))
+    v = cdf * M / cdf[-1] - r
+    tol = 64 * np.finfo(we.dtype).eps
+    near = np.abs(v - np.round(v)) <= tol * M
+    for i in bad:
+        same = cdf[:i + 1] >= cdf[i] - tol * cdf[-1]
+        assert near[:i + 1][same].any(), f"boundary {i} moved without a tie"
+    return bad
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["uniform", "skewed", "single"])
+def test_slot_stage_twin_matches_jax_slots(dtype, kind):
+    """The slot stage's twin (kernel E's arithmetic on any device) against
+    JAX's ``_systematic_slots`` on the same weights and r: the same K, and
+    so the same resampled counts, except at one-ulp ties; and the whole
+    resample's twin gives ``x[j]`` for its own K."""
+    N = 4096
+    rng = np.random.default_rng(7)
+    we = {"uniform": np.ones(N), "skewed": rng.random(N) ** 20,
+          "single": np.eye(1, N, 1234)[0]}[kind]
+    we = (we / we.sum()).astype(dtype)
+    key = jax.random.PRNGKey(3)
+    Kj = np.asarray(jrs._systematic_slots(jnp.asarray(we), key, N))
+    r = float(jax.random.uniform(key, (), jnp.asarray(we).dtype))
+    Kt = resample_v2.systematic_slots_plain(torch.tensor(we),
+                                            torch.tensor(r), N).numpy()
+    assert Kt.dtype == np.int32 and np.all(np.diff(Kt) >= 0)
+    bad = _ties(Kt, Kj, we, r, N)
+    assert bad.size <= 4
+    counts = [np.diff(K.astype(np.int64), prepend=0) for K in (Kt, Kj)]
+    moved = np.zeros(N + 1, bool)
+    moved[bad] = moved[bad + 1] = True
+    np.testing.assert_array_equal(counts[0][~moved[:N]],
+                                  counts[1][~moved[:N]])
+    x = rng.normal(size=(N, 3)).astype(dtype)
+    out, j = resample_v2.systematic_resample_plain(
+        torch.tensor(x), torch.tensor(we), torch.tensor(r))
+    jt = np.searchsorted(Kt, np.arange(N), side="right").clip(max=N - 1)
+    np.testing.assert_array_equal(j.numpy(), jt)
+    np.testing.assert_array_equal(out.numpy(), x[jt])
