@@ -15,7 +15,10 @@ exits non-zero without its result lines):
    the median (and the least) of 20 runs of 100 calls each, in turns, and
    the profiler's device time of each.  Kernel D in both forms (the
    benchmark's dynamics compiled in, and ``f(x)`` from PyTorch) at
-   N = 1e5: CUDA-event and device time, the build apart.
+   N = 1e5: CUDA-event and device time, the build apart.  Kernel B also
+   at N = 2^24 + 1, beyond kernel E's N, through ``resample_gather``
+   with ``exact`` False and True (``_cumsum``'s K, then B), bitwise equal
+   to the plain path on the card.
 4. main path: the benchmark's 2-state model (bench.py:389-402) at
    N = 1e5, T = 1000, Neff threshold 0.1, through ``pf.loglik`` on CUDA
    tensors: kernel A, PF ll within 1 % of the exact KF ll; median time of
@@ -820,11 +823,13 @@ FFBS_RMS_Z = 0.4
 
 
 def ffbs_ops(T, N, M, nx):
-    """Operations of kernel J: per (t, m, n) the score (2 nx + 3), the
-    compare, a quarter Philox call, the two logs, the uniform (4) and two
-    negations; per (t, m) the whitened state."""
-    per_draw = 2 * nx + 4 + PHILOX_OPS / 4 + 2 + 4 + 2
-    return (T - 1) * M * (N * per_draw + 3 * nx * (nx + 1) // 2 + 3 * nx)
+    """Operations of the draw kernel J makes, whatever its way of making
+    it: per (t, m, n) the score (2 nx + 1), the max, the exp and its
+    subtraction and the add of the sum (4); per (t, m) one Philox call, a
+    search of ceil(log2 N) compares and the whitened state."""
+    per_col = 2 * nx + 1 + 4
+    return (T - 1) * M * (N * per_col + math.ceil(math.log2(N))
+                          + 3 * nx * (nx + 1) // 2 + 3 * nx + PHILOX_OPS)
 
 
 def ffbs_bytes(T, N, M, nx):
@@ -913,7 +918,7 @@ def ffbs_phase(dev, kernels, stats, launches, smi, data, model, kf):
         # draws apart (a near-tie broken by one ulp), expected none
         require(apart[False] == 0.0, f"N={N}: J's MAP columns equal the "
                 f"twin's ({apart[False]:.3g} apart)")
-        require(apart[True] <= 1e-3, f"N={N}: J's Gumbel draws within 0.1 % "
+        require(apart[True] <= 1e-3, f"N={N}: J's draws within 0.1 % "
                 f"of the twin's ({apart[True]:.3g} apart)")
         ms = cuda_ms(lambda: ffbs.ffbs_backward_scan(*args, 17), 5)
         med = host_median_ms(lambda: pf.smooth(
@@ -993,7 +998,7 @@ def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
 
     MOM, SEG, DEN = (pf_scan.PF_MOMENTS_SCAN, pf_scan.PF_SEGMENT_SCAN,
                      pf_scan.PF_DENSITY_SCAN)
-    E, Bk = resample_v2.SYSTEMATIC_INDEX_GATHER, resample_route.SYSTEMATIC_GATHER
+    E, Bk = resample_v2.SYSTEMATIC_RESAMPLE, resample_route.SYSTEMATIC_GATHER
     N = N_MAIN
     g = torch.Generator(device=dev)
     gcpu = torch.Generator().manual_seed(SEED + 13)
@@ -1224,7 +1229,7 @@ def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
         log("E systematic_resample", "torch.profiler traced no kernel of "
             "an exact resample: its launches are the dispatch count")
     call_e = lambda: resample_v2.systematic_resample(x2, we2, r2)  # noqa
-    stats["systematic_index_gather"] = dict(
+    stats["systematic_resample"] = dict(
         max_abs_err=worst_e, N=N, nx=2,
         # no one PyTorch call resamples from the weights (cumsum, the slot
         # formula, cummax, searchsorted and index_select are five)
@@ -1253,7 +1258,7 @@ def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
         f"{N + 3}, f32 and f64, nx 2 and 8, random, U^20 and single-particle "
         f"weights; an exact resample launches {ops_e}, returns ahead of the "
         f"card {ahead_e}, by torch.profiler {prof_e}; "
-        f"{stats['systematic_index_gather']}; slot stage "
+        f"{stats['systematic_resample']}; slot stage "
         f"{stats['systematic_slots']} ({smi})")
     u14, y14, ll_kf14 = data(100, seed=14)
     u14c, y14c = u14.float().to(dev), y14.float().to(dev)
@@ -1265,7 +1270,7 @@ def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
     n14 = resamples(sol_e)
     sol_b = pf.forward_trajectory(u14c, y14c, generator=g.manual_seed(SEED))
     rel14 = abs(float(sol_e.ll) - ll_kf14) / abs(ll_kf14)
-    require(path14["systematic_index_gather"] == n14 >= 1
+    require(path14["systematic_resample"] == n14 >= 1
             and path14["systematic_gather"] == 0 and rel14 < 0.01
             and path14["systematic_slots"] == 0 and Bk.launches == n14
             and SL.launches == n14,
@@ -1274,9 +1279,9 @@ def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
     require(all(torch.equal(getattr(sol_e, f), getattr(sol_b, f))
                 for f in ("x", "w", "we", "ll")),
             "exact_resample (E) and default (B) runs are bitwise equal")
-    launches["systematic_index_gather"] = path14["systematic_index_gather"]
+    launches["systematic_resample"] = path14["systematic_resample"]
     log("E", f"forward_trajectory exact_resample N={N} T=100: {n14} "
-        f"resamples, E launches {path14['systematic_index_gather']}, ll "
+        f"resamples, E launches {path14['systematic_resample']}, ll "
         f"{float(sol_e.ll)} KF {ll_kf14} rel {rel14:.3g}; bitwise equal to "
         f"the kernel-B run")
 
@@ -1319,7 +1324,7 @@ def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
     adv_res = path15["systematic_gather"] - (T_MAIN - 1)
     rel_a = abs(float(sol_a.ll) - ll_kf) / abs(ll_kf)
     rel_adv = abs(ll_adv - ll_kf15) / abs(ll_kf15)
-    require(adv_res >= 1 and path15["systematic_index_gather"]
+    require(adv_res >= 1 and path15["systematic_resample"]
             == T_MAIN - 1 + adv_res,
             f"phase 15 launches {path15}: B and E once a predict of the APF "
             f"and once a resample of the advanced filter")
@@ -1331,7 +1336,7 @@ def tracking_phases(dev, kernels, stats, launches, smi, data, model, kf,
             f"advanced ll {ll_adv} vs KF {ll_kf15} (rel {rel_adv:.3g})")
     require(path15["systematic_slots"] >= 1,
             f"phase 15: the B runs take E's slot stage ({path15})")
-    launches["systematic_index_gather"] += path15["systematic_index_gather"]
+    launches["systematic_resample"] += path15["systematic_resample"]
     launches["systematic_slots"] += path15["systematic_slots"]
     log("APF", f"N={N} T={T_MAIN}: ll {float(sol_a.ll)} KF {ll_kf} rel "
         f"{rel_a:.3g}, one forward_trajectory {t_apf * 1e3:.1f} ms; advanced "
@@ -1717,7 +1722,7 @@ def main():
                ukf_scan.UKF_SCAN, ukf_scan.AKF_SCAN, ukf_scan.EKF_SCAN,
                ffbs.FFBS_BACKWARD, assoc_scan.ASSOC_SCAN,
                pf_scan.PF_MOMENTS_SCAN, pf_scan.PF_SEGMENT_SCAN,
-               pf_scan.PF_DENSITY_SCAN, resample_v2.SYSTEMATIC_INDEX_GATHER,
+               pf_scan.PF_DENSITY_SCAN, resample_v2.SYSTEMATIC_RESAMPLE,
                assoc_scan.ASSOC_SCAN_FULL, resample_v2.SYSTEMATIC_SLOTS]
     stats = {k.name: {} for k in kernels}
     launches = {}
@@ -1890,14 +1895,44 @@ def main():
                     plain_ms=cuda_ms(
                         lambda: resample_route.systematic_gather_plain(x, K),
                         20))
+    # beyond kernel E's N (2^24) a resample takes _cumsum's K and B's
+    # gather: resample_gather with exact False and True at N = 2^24 + 1,
+    # bitwise equal to the plain path on the card (the same _cumsum
+    # arithmetic, searchsorted and indexing), two launches of B, none of E
+    NB = (1 << 24) + 1
+    gB = torch.Generator(device=dev).manual_seed(SEED + 24)
+    xB = torch.randn(NB, 2, generator=gB, device=dev)
+    weB = torch.rand(NB, generator=gB, device=dev) ** 20
+    weB = weB / weB.sum()
+    genB = torch.Generator(device=dev)
+    rB = torch.rand((), generator=genB.manual_seed(3), device=dev)
+    binsB = ors._cumsum(weB)
+    KB = torch.cummax(torch.ceil(binsB * NB / binsB[-1:] - rB).to(
+        torch.int32), 0).values.clamp(0, NB)
+    refB = xB[resample_route.slot_sources(KB)]
+    e0 = resample_v2.SYSTEMATIC_SLOTS.launches
+    b0 = resample_route.SYSTEMATIC_GATHER.launches
+    for exact in (False, True):
+        outB = ors.resample_gather(xB, weB, genB.manual_seed(3), exact=exact)
+        require(torch.equal(outB, refB), f"resample_gather at N={NB}, "
+                f"exact={exact}: bitwise equal to the plain path")
+    require(resample_route.SYSTEMATIC_GATHER.launches == b0 + 2
+            and resample_v2.SYSTEMATIC_SLOTS.launches == e0,
+            f"N={NB}: B twice, E's slot stage never")
+    msB = cuda_ms(lambda: resample_route.systematic_gather(xB, KB), 20)
+    del xB, weB, binsB, refB, outB, KB
     # a row gather by slot boundaries is searchsorted + index_select: two
-    # PyTorch calls, so no library time
+    # PyTorch calls, so no library time; B reads K once and each row once
+    # and writes each row once
     stats["systematic_gather"].update(
         max_abs_err=worst, library_ms=None,
-        **bound(4 * (2 * N_MAIN * 2 + N_MAIN),
-                N_MAIN * (2 * math.ceil(math.log2(N_MAIN)) + 2)))
+        **bound(N_MAIN * (4 + 2 * 4 * 2), 0),
+        ms_N2p24_1=msB, bound_ms_N2p24_1=bound(NB * (4 + 2 * 4 * 2),
+                                               0)["bound_ms"])
     log("B systematic_gather", f"bitwise at N={N_MAIN}, nx 2 and 4, "
-        f"uniform and U^20 weights; {stats['systematic_gather']}")
+        f"uniform and U^20 weights; resample_gather at N={NB} (exact False "
+        f"and True: _cumsum's K, B) bitwise equal to the plain path; "
+        f"{stats['systematic_gather']} ({smi})")
 
     # A at N = 1e5, T = 200, four cases (see the tolerance notes).
     u2, y2, _ = data(200, seed=2)

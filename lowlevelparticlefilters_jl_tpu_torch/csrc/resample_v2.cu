@@ -46,7 +46,7 @@
 //   3. Every block forms the warp runs' exclusive running maxes; K_i is
 //      its warp run's partial max raised to that and clamped.  The slot
 //      stage writes K; the full resample binary-searches K for each slot
-//      (llpf_upper_bound's answer, csrc/slots.cuh) and copies one row.
+//      (j_k = #{i : K_i <= k}, clipped to N - 1) and copies one row.
 //      (The search's first levels kept in shared memory, K at the ends of
 //      4096 slices loaded by every block, measured slower: 15k against
 //      12k cycles, the blocks' redundant loads; PERF.md.)
@@ -384,7 +384,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = blockIdx.x * kThreads + threadIdx.x; k < N;
          k += gridDim.x * kThreads) {
       int lo = 0, hi = N;
-      while (lo < hi) {   // llpf_upper_bound on the final K
+      while (lo < hi) {   // #{i : K_i <= k} on the final K
         const int mid = (lo + hi) >> 1;
         if (clamp_k(imax(a.Kt[mid], mb[mid / kWarpRun]), a.M) <= k)
           lo = mid + 1;

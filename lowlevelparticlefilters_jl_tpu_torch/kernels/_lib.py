@@ -58,7 +58,7 @@ _SIGNATURES = {
                          _P],
     "llpf_akf_scan": [_P] * 9 + [_F, _I, _I, _I] + [_P] * 9,
     "llpf_akf_scan_stats": [_P] * 9 + [_F, _I, _I, _I] + [_P] * 10,
-    "llpf_ffbs_backward": [_P] * 9 + [_I, _I, _I, _I, _U64, _I, _P],
+    "llpf_ffbs_backward": [_P] * 11 + [_I, _I, _I, _I, _U64, _I, _P],
 }
 # entry points of the callback-specialised modules (build_generated)
 _GEN_SIGNATURES = {

@@ -11,10 +11,18 @@ code, as the JAX package does them in XLA outside its Pallas kernel; the
 backward pass is kernel J (``csrc/ffbs.cu``) on CUDA tensors and its
 plain twin :func:`ffbs_backward_plain` on CPU tensors.
 
-Noise: Gumbel(0, 1) from Philox4x32-10 keyed by ``seed``, counter
-(n // 4, t, m, ``TAG_FFBS``), lane n % 4, mapped to u strictly inside
-(0, 1) (see ``csrc/ffbs.cu``); the twin draws the same words
-(:func:`gumbel_plain`), so kernel and twin compare draw for draw.
+The draw: one uniform a (step, trajectory) from Philox4x32-10 keyed by
+``seed``, counter (t, m, 0, ``TAG_FFBS``), mapped strictly inside (0, 1)
+(:func:`uniforms_plain`), picks a column by inverse CDF over the
+weights ``exp(w - max)`` summed in one fixed order: chunks of
+:data:`CHUNK` columns, each lane of a warp summing its 32 columns left to
+right, the lanes' totals by a Kogge-Stone scan, the chunks rescaled to
+the row's max and summed left to right (:func:`lane_prefix`,
+:func:`inverse_cdf_plain`; ``csrc/ffbs.cu`` spells the rule out).  The
+twin repeats that arithmetic op for op, so kernel and twin compare draw
+for draw.  It samples the categorical law the TPU kernel's Gumbel-max
+draw samples (``use_prng``), with one uniform a draw and one ``exp`` a
+column where Gumbel-max takes a random word and two logs a column.
 ``noise=False`` selects the exact MAP column, the mode in which the JAX
 kernel runs off the TPU (``use_prng=False``).
 
@@ -42,6 +50,12 @@ FFBS_BACKWARD = KernelInfo(
 MAX_DIM = 8
 _MAX_N = 1 << 30
 _TWO_M24 = 5.9604644775390625e-08
+CHUNK = 1024         # columns a chunk of the draw's summation order
+LANES = 32           # a chunk's columns l + 32 i go to lane l
+#: ``stats=`` slots: block 0's first warp's ``clock64`` cycles in the staging
+#: (with the step's zb and uniform), the scores and max, the exp and
+#: prefix sums, the search, the row, and the whole step loop
+CLOCKS = ("stage", "score_max", "exp_sum", "search", "row", "loop")
 
 
 def ffbs_kernel_supported(df, nx: int, like: torch.Tensor) -> bool:
@@ -77,18 +91,94 @@ def whiten(xpred: torch.Tensor, wf: torch.Tensor, chol: torch.Tensor):
             Linv.contiguous())
 
 
-def gumbel_plain(seed: int, t: int, M: int, N: int, device=None
-                 ) -> torch.Tensor:
-    """Kernel J's Gumbel noise of step ``t``, [M, N] float32."""
+def uniforms_plain(seed: int, t: int, M: int, device=None) -> torch.Tensor:
+    """Kernel J's uniforms of step ``t``, [M] float32 in [2^-24, 1 - 2^-24]:
+    Philox word 0 of counter (t, m, 0, ``TAG_FFBS``), ``((b >> 9) * 2 + 1)
+    2^-24``, exact in float32."""
     k0, k1 = split_seed(seed)
-    Q = -(-N // 4)
-    q = torch.arange(Q, dtype=torch.int64, device=device).repeat(M)
-    m = torch.arange(M, dtype=torch.int64, device=device).repeat_interleave(Q)
-    words = philox4x32_10(q, torch.full_like(q, int(t)), m,
-                          torch.full_like(q, TAG_FFBS), k0, k1)
-    b = torch.stack(words, -1).reshape(M, 4 * Q)[:, :N]
-    u = (((b >> 9) << 1) | 1).to(torch.float32) * _TWO_M24
-    return -torch.log(-torch.log(u))
+    m = torch.arange(M, dtype=torch.int64, device=device)
+    b = philox4x32_10(torch.full_like(m, int(t)), m, torch.zeros_like(m),
+                      torch.full_like(m, TAG_FFBS), k0, k1)[0]
+    return (((b >> 9) << 1) | 1).to(torch.float32) * _TWO_M24
+
+
+def _ex(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``exp(a - b)`` as kernel J takes it: 0 where ``a`` is -inf or NaN,
+    1 where ``a == b``."""
+    e = torch.where(a == b, torch.ones_like(a), torch.exp(a - b))
+    return torch.where(a > float("-inf"), e, torch.zeros_like(a))
+
+
+def lane_prefix(e: torch.Tensor):
+    """Kernel J's summation order over a chunk of weights ``e`` [..., R,
+    32], column ``l + 32 i`` at ``[..., i, l]``: each lane's inclusive
+    prefix ``Q`` over i, left to right; the lanes' exclusive prefix ``E``
+    [..., 32] of their totals by a Kogge-Stone scan (add the value
+    1, 2, 4, 8, 16 lanes down); and the chunk's total, the scan's last
+    lane.  Returns ``(Q, E, total)``."""
+    Q = torch.empty_like(e)
+    acc = torch.zeros_like(e[..., 0, :])
+    for i in range(e.shape[-2]):
+        acc = acc + e[..., i, :]
+        Q[..., i, :] = acc
+    incl = acc
+    for d in (1, 2, 4, 8, 16):
+        incl = incl + torch.nn.functional.pad(incl[..., :-d], (d, 0))
+    E = torch.nn.functional.pad(incl[..., :-1], (1, 0))
+    return Q, E, incl[..., -1]
+
+
+def _first(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last dim (0 where none)."""
+    return torch.argmax(mask.to(torch.uint8), -1)
+
+
+def _last(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the last True along the last dim (0 where none)."""
+    n = mask.shape[-1]
+    return n - 1 - _first(mask.flip(-1))
+
+
+def inverse_cdf_plain(w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Kernel J's draw: the column [M] (int64) of the scores ``w`` [M, N]
+    that the uniforms ``u`` [M] pick (the rule in ``csrc/ffbs.cu``): the
+    chunks' maxes ``m_c`` and weights ``ex(w, m_c)`` summed by
+    :func:`lane_prefix`; over the chunks ``mx``, ``f_c = ex(m_c, mx)``,
+    ``a_c = s_c f_c`` and their running sum ``acc_c``, left to right;
+    ``thr = u acc``; the first chunk with ``a_c > 0`` and ``acc_c + a_c >
+    thr`` (else the last with ``a_c > 0``) and in it the first column,
+    lanes first, of weight > 0 with ``acc_c + (E + Q) f_c > thr`` (else
+    its last of weight > 0).  A row with no finite score takes column 0."""
+    M, N = w.shape
+    nC = -(-N // CHUNK)
+    s = torch.where(torch.isnan(w), float("-inf"), w)
+    s = torch.nn.functional.pad(s, (0, nC * CHUNK - N), value=float("-inf"))
+    s = s.view(M, nC, CHUNK // LANES, LANES)
+    mc = s.amax((-2, -1))                                  # [M, nC]
+    e = _ex(s, mc[..., None, None])
+    Q, E, sc = lane_prefix(e)
+    mx = mc.amax(-1)                                       # [M]
+    f = _ex(mc, mx[:, None])
+    a = sc * f
+    before = torch.empty_like(a)
+    acc = torch.zeros_like(mx)
+    for c in range(nC):
+        before[:, c] = acc
+        acc = acc + a[:, c]
+    thr = u * acc
+    hit = (a > 0) & (before + a > thr[:, None])
+    cs = torch.where(hit.any(-1), _first(hit), _last(a > 0))
+    rows = torch.arange(M, device=w.device)
+    fc, ac = f[rows, cs], before[rows, cs]
+    P = ac[:, None, None] + (E[rows, cs][:, None, :] + Q[rows, cs]) * \
+        fc[:, None, None]
+    nz = e[rows, cs] > 0                                   # [M, R, 32]
+    hit = (nz & (P > thr[:, None, None])).transpose(1, 2).flatten(1)
+    nz = nz.transpose(1, 2).flatten(1)                     # lanes first
+    k = torch.where(hit.any(-1), _first(hit), _last(nz))
+    R = CHUNK // LANES
+    col = cs * CHUNK + (k % R) * LANES + k // R
+    return torch.where(mx > float("-inf"), col, torch.zeros_like(col))
 
 
 def ffbs_backward_plain(zpred, wfc, c, xf, xb_T, Linv, mu, seed: int, *,
@@ -115,10 +205,11 @@ def ffbs_backward_plain(zpred, wfc, c, xf, xb_T, Linv, mu, seed: int, *,
             w = w + zb[k][:, None] * zpred[t, :, k]
         w = w - 0.5 * cm[:, None]
         if noise:
-            w = w + gumbel_plain(seed, t, M, N, dev)
-        # a NaN never wins; a row without a finite score takes column 0
-        w = torch.where(torch.isnan(w), float("-inf"), w)
-        i = torch.argmax(w, 1)
+            i = inverse_cdf_plain(w, uniforms_plain(seed, t, M, dev))
+        else:
+            # a NaN never wins; a row without a finite score takes column 0
+            w = torch.where(torch.isnan(w), float("-inf"), w)
+            i = torch.argmax(w, 1)
         xb = xf[t][i]
         outs.append(xb)
         idxs.append(i.to(torch.int32))
@@ -130,13 +221,15 @@ def ffbs_backward_plain(zpred, wfc, c, xf, xb_T, Linv, mu, seed: int, *,
 
 
 def ffbs_backward_scan(zpred, wfc, c, xf, xb_T, Linv, mu, seed: int, *,
-                       noise: bool = True, return_indices: bool = False):
+                       noise: bool = True, return_indices: bool = False,
+                       stats=None):
     """The backward pass on whitened inputs (:func:`whiten`): ``zpred``
     [T-1, N, nx], ``wfc`` [T-1, N], ``c`` [T-1, nx], ``xf`` [T-1, N, nx],
     ``xb_T`` [M, nx], ``Linv`` [nx, nx], ``mu`` [nx].  Returns ``xb``
     [T, M, nx] (and the chosen columns [T-1, M] int32 with
     ``return_indices``).  CUDA tensors launch kernel J; CPU tensors run
-    the plain twin."""
+    the plain twin.  With ``stats`` (CUDA int64 [6]) the kernel writes
+    block 0's first warp's ``clock64`` cycles by :data:`CLOCKS`."""
     if not zpred.is_cuda:
         return ffbs_backward_plain(zpred, wfc, c, xf, xb_T, Linv, mu, seed,
                                    noise=noise, return_indices=return_indices)
@@ -151,14 +244,23 @@ def ffbs_backward_scan(zpred, wfc, c, xf, xb_T, Linv, mu, seed: int, *,
             ("xb_T", xb_T, (M, nx)), ("Linv", Linv, (nx, nx)),
             ("mu", mu, (nx,))):
         require_cuda_f32(name, t, shape)
-    out = torch.empty(Tm1 + 1, M, nx, dtype=torch.float32,
-                      device=zpred.device)
-    idx = (torch.empty(Tm1, M, dtype=torch.int32, device=zpred.device)
+    if stats is not None and not (stats.is_cuda and stats.dtype == torch.int64
+                                  and stats.numel() == len(CLOCKS)):
+        raise ValueError(f"stats must be a CUDA int64 [{len(CLOCKS)}] tensor")
+    if zpred.data_ptr() % 16:  # the chosen chunk's rows are vector loads
+        zpred = zpred.clone()
+    dev = zpred.device
+    out = torch.empty(Tm1 + 1, M, nx, dtype=torch.float32, device=dev)
+    idx = (torch.empty(Tm1, M, dtype=torch.int32, device=dev)
            if return_indices else None)
+    chunks = (torch.empty(M, -(-N // CHUNK), 2, dtype=torch.float32,
+                          device=dev) if N > CHUNK else None)
     check(library().lib.llpf_ffbs_backward(
         zpred.data_ptr(), wfc.data_ptr(), c.data_ptr(), xf.data_ptr(),
         xb_T.data_ptr(), Linv.data_ptr(), mu.data_ptr(), out.data_ptr(),
-        idx.data_ptr() if idx is not None else None, Tm1, N, M, nx,
+        idx.data_ptr() if idx is not None else None,
+        chunks.data_ptr() if chunks is not None else None,
+        stats.data_ptr() if stats is not None else None, Tm1, N, M, nx,
         int(seed) & (2**64 - 1), int(noise), stream_ptr(zpred)),
         "ffbs_backward")
     FFBS_BACKWARD.launches += 1

@@ -5,7 +5,9 @@
 clipped to N - 1, where ``K`` are the non-decreasing slot boundaries of
 ``ops/resample.py::_systematic_slots``.  The TPU kernel's [8, NL] plane
 layout and its three log-shift routing phases are not ported: on the card
-each slot binary-searches K and copies one row.
+each block takes an equal share of the merged boundaries and slots (a
+merge-path search, ``csrc/slots.cuh``), reads its boundaries once into
+shared memory, and copies its slots' rows (``csrc/resample_route.cu``).
 """
 from __future__ import annotations
 

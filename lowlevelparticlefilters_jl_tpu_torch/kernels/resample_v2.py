@@ -28,16 +28,27 @@ import torch
 
 from ..ops.resample import _systematic_slots, _uniform
 from ._lib import KernelInfo, check, library, stream_ptr
-from .resample_route import slot_sources
+from .resample_route import slot_sources, systematic_gather
 
 _SRC = "lowlevelparticlefilters_jl_tpu_torch/csrc/resample_v2.cu"
 _JAX = "lowlevelparticlefilters_jl_tpu/ops/pallas/resample_v2.py:182"
-SYSTEMATIC_INDEX_GATHER = KernelInfo("systematic_index_gather", _SRC, _JAX)
+SYSTEMATIC_RESAMPLE = KernelInfo("systematic_resample", _SRC, _JAX)
 #: the slot stage alone (kernel B's route): the same source and arithmetic
 SYSTEMATIC_SLOTS = KernelInfo("systematic_slots", _SRC, _JAX)
 
 RUN = 32             # values a run of the prefix's summation order
 MAX_N = 1 << 24      # the kernel's N: its scans keep N / 1024 sums on chip
+
+
+def kernel_takes(shape, dtype) -> bool:
+    """Whether kernel E takes weights of this shape and dtype: 1-D,
+    float32 or float64, 1 <= N <= :data:`MAX_N`.  ``ops/resample.py``
+    routes by it, and :func:`_weights` admits by it, so the route and the
+    kernel's checks agree.  Other weights take ``_cumsum``'s slot
+    boundaries and kernel B's gather: a route chosen by size and dtype,
+    as the JAX package admits its kernels by their envelopes."""
+    return (len(shape) == 1 and dtype in (torch.float32, torch.float64)
+            and 1 <= shape[0] <= MAX_N)
 
 
 def runs_prefix(v: torch.Tensor) -> torch.Tensor:
@@ -91,10 +102,10 @@ def _weights(we: torch.Tensor, r, N: int, what: str):
     """Kernel E's checks of the weights and the offset; returns them as
     the kernel reads them (16-byte aligned; r a device scalar of their
     dtype)."""
-    if we.dtype not in (torch.float32, torch.float64) or we.ndim != 1:
-        raise TypeError(f"{what}: the weights must be a 1-D float32 or "
-                        "float64 tensor")
-    if not 1 <= N <= MAX_N or we.shape[0] != N:
+    if not kernel_takes(we.shape, we.dtype) or we.shape[0] != N:
+        if we.dtype not in (torch.float32, torch.float64) or we.ndim != 1:
+            raise TypeError(f"{what}: the weights must be a 1-D float32 or "
+                            "float64 tensor")
         raise ValueError(f"{what}: N = {we.shape[0]} weights, kernel E "
                          f"takes 1 to {MAX_N}")
     if we.requires_grad:
@@ -185,21 +196,26 @@ def systematic_resample(x: torch.Tensor, we: torch.Tensor, r, *,
         j.data_ptr(), scratch.data_ptr(), scratch.numel() * 8,
         _stats(stats), N, nx * x.element_size() // 4, we.element_size(),
         stream_ptr(x)), "systematic_resample")
-    SYSTEMATIC_INDEX_GATHER.launches += 1
+    SYSTEMATIC_RESAMPLE.launches += 1
     return out, j
 
 
 def fused_systematic_gather(x: torch.Tensor, we: torch.Tensor,
                             generator=None, *, r=None):
     """Systematic resample + gather, bitwise equal to
-    ``x[resample_systematic(we)]``: returns ``(x[j], j)``.  The offset
-    ``r`` is drawn from ``generator`` unless given (as the JAX tests pass
-    the JAX draw).  Kernel E on CUDA tensors; on the CPU the slot
-    boundaries of ``ops/resample.py::_systematic_slots`` and the
-    gather's twin."""
+    ``x[resample_systematic(we)]``: returns ``(x[j], j)``, j int32.  The
+    offset ``r`` is drawn from ``generator`` unless given (as the JAX
+    tests pass the JAX draw).  Kernel E on CUDA tensors where it takes the
+    weights (:func:`kernel_takes`); other weights on the card (N above
+    :data:`MAX_N`, float16) take ``ops/resample.py::_systematic_slots``'
+    ``_cumsum`` boundaries, kernel B's gather and ``slot_sources(K)``; on
+    the CPU the slot boundaries of ``_systematic_slots`` and the gather's
+    twin."""
     r = _uniform(generator, (), we) if r is None else r
-    if x.is_cuda:
+    if x.is_cuda and kernel_takes(we.shape, we.dtype):
         # j, an integer function of the weights, carries no gradient
         return systematic_resample(x, we.detach(), r)
-    return systematic_index_gather_plain(
-        x, _systematic_slots(we, r, we.shape[-1]))
+    K = _systematic_slots(we, r, we.shape[-1])
+    if x.is_cuda:
+        return systematic_gather(x, K), slot_sources(K).to(torch.int32)
+    return systematic_index_gather_plain(x, K)

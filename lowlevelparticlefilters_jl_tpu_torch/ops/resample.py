@@ -35,9 +35,10 @@ def _cumsum(w: torch.Tensor) -> torch.Tensor:
     bit can move a slot boundary K and so the resampled cloud.  Here the
     weights are scanned as rows of a [≥2, 1024] view (PyTorch's per-row
     scan, one fixed order), and the row totals likewise, as the first
-    row of a [2, rows] view.  The slot boundaries of 1-D weights on the
-    card take kernel E's slot stage instead (:func:`_systematic_slots`);
-    the particle-sharded PF's global prefix (parallel/sharded.py) keeps
+    row of a [2, rows] view.  The slot boundaries of the weights that
+    kernel E takes on the card come from its slot stage instead
+    (:func:`_systematic_slots`); those beyond it (N > 2^24, float16) and
+    the particle-sharded PF's global prefix (parallel/sharded.py) keep
     this one."""
     if not w.is_cuda or w.ndim != 1:
         return torch.cumsum(w, -1)
@@ -59,15 +60,18 @@ def _systematic_slots(we: torch.Tensor, r: torch.Tensor, M: int
 
     A floating-point cumsum is not monotone under rounding for heavily
     skewed weights, so K is repaired with a running max, as in the JAX
-    package; every gather assumes sorted K.  One-dimensional weights on
-    the card take kernel E's slot stage (kernels/resample_v2.py), the
+    package; every gather assumes sorted K.  Weights on the card that
+    kernel E takes (``resample_v2.kernel_takes``: 1-D, float32 or float64,
+    N <= 2^24) take its slot stage (kernels/resample_v2.py), the
     arithmetic of E's whole resample, so kernel B's gather and E give the
     same cloud; K, an integer function of the weights, carries no
-    gradient."""
-    if we.is_cuda and we.ndim == 1:
-        from ..kernels.resample_v2 import systematic_slots
+    gradient.  Other weights (batched, float16, or beyond E's N) take
+    :func:`_cumsum`, as on the CPU."""
+    if we.is_cuda:
+        from ..kernels.resample_v2 import kernel_takes, systematic_slots
 
-        return systematic_slots(we.detach(), r, M)
+        if kernel_takes(we.shape, we.dtype):
+            return systematic_slots(we.detach(), r, M)
     bins = _cumsum(we)
     total = bins[..., -1:]
     K = torch.ceil(bins * M / total - r).to(torch.int32)

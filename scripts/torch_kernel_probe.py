@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Probe kernels C (normal draws), G, H, I (whole scans), A (the
 bootstrap PF in one launch), D (the PF's propagate step), E and B (the
-systematic resample) and K (the temporal-parallel scans) on the card:
-device time against host time, the compiled step loops, A's time a step,
-the cost of a grid sync, H's prefix and tail, D's step, E's resample and
-K's launches.
+systematic resample), K (the temporal-parallel scans) and J (the FFBS
+backward pass) on the card: device time against host time, the compiled
+step loops, A's time a step, the cost of a grid sync, H's prefix and
+tail, D's step, E's resample, K's launches, J's step and B's gather.
 
     python3 scripts/torch_kernel_probe.py [noise] [scan] [pf] [sync] [akf] [prop]
-        [resample] [kscan] [--out DIR]
+        [resample] [kscan] [ffbs] [gather] [--out DIR]
 
 Needs one CUDA card.  Runs the named sections (all without arguments).
 It reads the kernels of the checkout it lies in, so a copy of it in
@@ -65,7 +65,24 @@ tree only, and reads neither G's nor H's step loop.
 - ``kscan``: kernel K's three modes (filter, smooth, whole elements) at
   T = 1e5 and 1e6, nx = 2, on generic elements: ms a call by CUDA events
   (20 calls), each launch of one call in order with its device time
-  (``torch.profiler``), and whether two calls give the same bits.
+  (``torch.profiler``), and whether two calls give the same bits;
+- ``ffbs``: kernel J (``ffbs.ffbs_backward_scan``) on whitened random
+  clouds at M = 1000, nx = 2, (N, T) = (1000, 500) and (65536, 24), with
+  noise (the draw ``pf.smooth`` takes) and without (MAP): ms a call by
+  CUDA events (5 back to back), launches and device ms by
+  ``torch.profiler``; where the tree's J reports them (``stats=``), block
+  0's first warp's ``clock64`` split of the step loop (``ffbs.CLOCKS``);
+- ``gather``: kernel B (``resample_route.systematic_gather``) given the
+  same slot boundaries K (float64 ``torch.cumsum`` of the weights, the
+  slot formula and the running max, formed in this script so that any
+  tree gets them) at N = 1e5 (device ms by ``torch.profiler``, 50 calls;
+  the events are host-bound there) and at N = 2^24 + 1 and 2^25 (ms by
+  CUDA events, 20 back to back), nx = 2, float32, uniform and U^20
+  weights; whether the rows equal the plain gather bitwise, and the
+  share of the bytes bound N (4 + 2 * 4 nx) B at 3.35 TB/s; then at
+  N = 1e5 and 2^25, U^20, float32 and float64 rows, the copy of a row as
+  one vector against the copy word by word (the rows one element off
+  alignment), in turns.
 
 Prints one line per measurement and, last, the card's ``nvidia-smi`` name
 and power limit.
@@ -589,6 +606,135 @@ def kscan_section(dev):
                   flush=True)
 
 
+def _ffbs_inputs(dev, T, N, M, nx, seed):
+    """Kernel J's whitened inputs on the card: a cloud at 10 + N(0, 1),
+    predicted means 0.97 x + N(0, 0.01), N(0, 1) log-weights, every 97th
+    column -inf."""
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import ffbs
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xf = 10.0 + torch.randn(T - 1, N, nx, generator=g, device=dev)
+    xpred = 0.97 * xf + 0.1 * torch.randn(T - 1, N, nx, generator=g,
+                                          device=dev)
+    wf = torch.randn(T - 1, N, generator=g, device=dev)
+    wf[:, ::97] = float("-inf")
+    xb_T = 10.0 + torch.randn(M, nx, generator=g, device=dev)
+    L = torch.linalg.cholesky(0.02 * torch.eye(nx, device=dev) + 0.01)
+    mu = 0.01 * torch.arange(nx, dtype=torch.float32, device=dev)
+    zpred, wfc, c, Linv = ffbs.whiten(xpred, wf, L)
+    return zpred, wfc, c, xf, xb_T, Linv, mu
+
+
+def ffbs_section(dev):
+    """Kernel J's backward pass (module doc)."""
+    import inspect
+
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import _lib, ffbs
+
+    _lib.library()
+    params = inspect.signature(ffbs.ffbs_backward_scan).parameters
+    M, nx = 1000, 2
+    for N, T in ((1000, 500), (65536, 24)):
+        args = _ffbs_inputs(dev, T, N, M, nx, 700 + T)
+        for noise in (True, False):
+            fn = lambda: ffbs.ffbs_backward_scan(  # noqa: E731
+                *args, 17, noise=noise)
+            ms = events_ms(fn, 5)
+            kern = device_kernels_ms(fn, 3)
+            print(f"ffbs J N={N} T={T} M={M} nx={nx} noise={noise}: "
+                  f"{ms:.4f} ms a call by CUDA events (5 back to back); "
+                  f"device kernels {kern}", flush=True)
+        if "stats" in params:
+            st = torch.zeros(len(ffbs.CLOCKS), dtype=torch.int64, device=dev)
+            rows = []
+            for _ in range(5):
+                ffbs.ffbs_backward_scan(*args, 17, stats=st)
+                rows.append(st.tolist())
+            med = [statistics.median(c) for c in zip(*rows)]
+            clock, _ = clock_while(lambda: ffbs.ffbs_backward_scan(*args, 17))
+            print(f"ffbs J N={N} T={T} phases (block 0's first warp, "
+                  f"cycles of the loop, median of 5): "
+                  f"{dict(zip(ffbs.CLOCKS, med))}; "
+                  f"a step {med[-1] / (T - 1):.0f} cycles at the SM clock "
+                  f"{clock} MHz", flush=True)
+
+
+def _slot_bounds(we: torch.Tensor, r: float) -> torch.Tensor:
+    """Systematic slot boundaries of the weights ``we`` [N] at offset r,
+    formed here in float64 so that every tree gets valid ones."""
+    N = we.shape[0]
+    bins = torch.cumsum(we.double(), 0)
+    K = torch.ceil(bins * N / bins[-1] - r).to(torch.int32)
+    return torch.cummax(K, 0).values.clamp(0, N)
+
+
+def _word_aligned(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` one element past an aligned address, so that
+    kernel B copies its rows of 8 (16) bytes word by word and not as one
+    vector."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def gather_section(dev):
+    """Kernel B given the same slot boundaries (module doc)."""
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import (
+        _lib, resample_route)
+
+    _lib.library()
+    nx = 2
+    for N in (100_000, (1 << 24) + 1, 1 << 25):
+        g = torch.Generator(device=dev).manual_seed(N)
+        x = torch.randn(N, nx, generator=g, device=dev)
+        for prof in ("uniform", "U^20"):
+            we = torch.rand(N, generator=g, device=dev, dtype=torch.float64)
+            we = torch.ones_like(we) if prof == "uniform" else we ** 20
+            K = _slot_bounds(we, 0.37)
+            fn = lambda: resample_route.systematic_gather(x, K)  # noqa: E731
+            same = torch.equal(fn(), resample_route.systematic_gather_plain(
+                x, K))
+            bound = N * (4 + 2 * 4 * nx) / 3.35e12 * 1e3
+            if N <= 100_000:
+                kern = device_kernels_ms(fn, 50)
+                dev_ms = sum(kern.values())
+                print(f"gather B N={N} nx={nx} {prof}: device {dev_ms:.5f} "
+                      f"ms a call by torch.profiler (50 calls) {kern}; "
+                      f"{events_ms(fn, 50):.5f} ms by CUDA events; bitwise "
+                      f"{same}; bound {bound:.6f} ms", flush=True)
+            else:
+                ms = events_ms(fn, 20)
+                print(f"gather B N={N} nx={nx} {prof}: {ms:.5f} ms a call by "
+                      f"CUDA events (20 back to back); bitwise {same}; bytes "
+                      f"bound {bound:.5f} ms, {bound / ms:.3f} of it",
+                      flush=True)
+        if N == (1 << 24) + 1:
+            continue
+        # rows as one vector (aligned) against word by word (x one word
+        # off), float32 and float64, in turns
+        for dt in (torch.float32, torch.float64):
+            xa = x.to(dt)
+            xw = _word_aligned(xa)
+            times = {"vector": [], "words": []}
+            for _ in range(2):
+                for how, xi in (("vector", xa), ("words", xw), ("words", xw),
+                                ("vector", xa)):
+                    fn = lambda: resample_route.systematic_gather(  # noqa: E731
+                        xi, K)
+                    assert torch.equal(fn(), resample_route.
+                                       systematic_gather_plain(xa, K))
+                    if N <= 100_000:
+                        t = sum(device_kernels_ms(fn, 50).values())
+                    else:
+                        t = events_ms(fn, 20)
+                    times[how].append(t)
+            unit = "device ms" if N <= 100_000 else "ms by CUDA events"
+            print(f"gather B N={N} nx={nx} {str(dt)[6:]} U^20 rows as one "
+                  f"vector {times['vector']} against word by word "
+                  f"{times['words']} ({unit}); bitwise True", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -603,7 +749,7 @@ def main():
         out = Path(args[k + 1])
         del args[k:k + 2]
     sections = set(args) or {"noise", "scan", "pf", "sync", "akf", "prop",
-                             "resample", "kscan"}
+                             "resample", "kscan", "ffbs", "gather"}
     print(f"clocks: {smi('clocks.sm,clocks.max.sm')}", flush=True)
     if "noise" in sections:
         noise_section(dev)
@@ -621,6 +767,10 @@ def main():
         resample_section(dev)
     if "kscan" in sections:
         kscan_section(dev)
+    if "ffbs" in sections:
+        ffbs_section(dev)
+    if "gather" in sections:
+        gather_section(dev)
 
     print(smi("name,power.limit"), flush=True)
     return 0

@@ -76,18 +76,91 @@ def test_normal_tails_and_offset_view(cuda_device, n):
         assert float((got - zp).abs().max()) <= 1e-6
 
 
+def _gather_weights(profile, N, g):
+    """U^20 weights, or the skewed cloud B's merge-path split is for: one
+    heavy particle and long stretches of particles with no offspring."""
+    we = torch.rand(N, generator=g, dtype=torch.float64)
+    if profile == "U^20":
+        return we ** 20
+    we = torch.where(torch.arange(N) % 5000 < 4000, 0.0, 1e-6 * we)
+    we[N // 3] = 1.0
+    return we
+
+
+@pytest.mark.parametrize("N", [100_000, (1 << 24) + 1])
+@pytest.mark.parametrize("profile", ["U^20", "heavy"])
 @pytest.mark.parametrize("nx", [2, 4])
-def test_systematic_gather_bitwise(cuda_device, nx):
+def test_systematic_gather_bitwise(cuda_device, nx, profile, N):
+    """Kernel B against the plain gather on the same K, bitwise, float32
+    and float64 rows: the K of E's slot stage at N = 1e5, of ``_cumsum``
+    beyond E's N (2^24 + 1); one launch a call."""
     g = torch.Generator().manual_seed(nx)
-    x = torch.randn(100_000, nx, generator=g)
-    we = torch.rand(100_000, generator=g, dtype=torch.float64) ** 20
-    K = trs._systematic_slots(we / we.sum(),
-                              torch.tensor(0.37, dtype=torch.float64),
-                              100_000)
-    ref = resample_route.systematic_gather_plain(x, K)
-    out = resample_route.systematic_gather(x.to(cuda_device),
-                                           K.to(cuda_device))
-    assert torch.equal(out.cpu(), ref)
+    we = _gather_weights(profile, N, g).to(cuda_device)
+    K = trs._systematic_slots(we / we.sum(), torch.tensor(
+        0.37, dtype=torch.float64, device=cuda_device), N)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.randn(N, nx, generator=g, dtype=dtype).to(cuda_device)
+        ref = resample_route.systematic_gather_plain(x, K)
+        before = resample_route.SYSTEMATIC_GATHER.launches
+        out = resample_route.systematic_gather(x, K)
+        assert resample_route.SYSTEMATIC_GATHER.launches == before + 1
+        assert torch.equal(out, ref)
+
+
+def _cumsum_resample(x, we, r):
+    """The plain path of systematic resampling on the card: ``_cumsum``'s
+    slot boundaries (the CPU arithmetic, in a fixed order), searchsorted
+    and indexing; returns ``(x[j], j)``."""
+    N = we.shape[0]
+    bins = trs._cumsum(we)
+    K = torch.ceil(bins * N / bins[-1:] - r).to(torch.int32)
+    K = torch.cummax(K, 0).values.clamp(0, N)
+    j = resample_route.slot_sources(K)
+    return x[j], j
+
+
+@pytest.mark.parametrize("N,dtype", [((1 << 24) + 1, torch.float32),
+                                     ((1 << 24) + 1, torch.float64),
+                                     (4096, torch.float16)])
+def test_systematic_resampling_beyond_kernel_e(cuda_device, N, dtype):
+    """Weights kernel E does not take (N above 2^24, float16) resample on
+    the card through ``_cumsum``'s K and kernel B's gather:
+    ``resample_systematic``, ``resample_systematic_gather``,
+    ``fused_systematic_gather``, ``resample_gather`` with ``exact`` False
+    and True and the PF's resample step give the cloud and ``j`` of the
+    plain path on the same card, bitwise, and launch no E."""
+    from lowlevelparticlefilters_jl_tpu_torch.filters.particle import PFState
+
+    g = torch.Generator(device=cuda_device).manual_seed(N)
+    x = torch.randn(N, 2, generator=g, device=cuda_device)
+    we = torch.rand(N, generator=g, device=cuda_device,
+                    dtype=torch.float64) ** 20
+    we = (we / we.sum()).to(dtype)
+    r = torch.rand((), generator=g, device=cuda_device, dtype=dtype)
+    want_x, want_j = _cumsum_resample(x, we, r)
+    e0 = (resample_v2.SYSTEMATIC_RESAMPLE.launches,
+          resample_v2.SYSTEMATIC_SLOTS.launches)
+    b0 = resample_route.SYSTEMATIC_GATHER.launches
+    assert torch.equal(trs.resample_systematic(we, r=r), want_j)
+    assert torch.equal(trs.resample_systematic_gather(x, we, r=r), want_x)
+    got_x, got_j = resample_v2.fused_systematic_gather(x, we, r=r)
+    assert got_j.dtype == torch.int32
+    assert torch.equal(got_x, want_x) and torch.equal(got_j.long(), want_j)
+    gen = torch.Generator(device=cuda_device)
+    r = torch.rand((), generator=gen.manual_seed(5), device=cuda_device,
+                   dtype=dtype)
+    want_x, _ = _cumsum_resample(x, we, r)
+    pf = _model(N, cuda_device, threshold=1.0)
+    for exact in (False, True):
+        assert torch.equal(trs.resample_gather(
+            x, we, gen.manual_seed(5), exact=exact), want_x)
+        state = PFState(x=x, w=we.log(), we=we, t=0,
+                        generator=gen.manual_seed(5))
+        xr, did = pf.replace(exact_resample=exact)._maybe_resample(state)
+        assert did and torch.equal(xr, want_x)
+    assert (resample_v2.SYSTEMATIC_RESAMPLE.launches,
+            resample_v2.SYSTEMATIC_SLOTS.launches) == e0
+    assert resample_route.SYSTEMATIC_GATHER.launches == b0 + 6
 
 
 def _model(N, device, threshold=0.1, C_=C, backend="torch"):
@@ -739,13 +812,17 @@ def _ffbs_inputs(dev, T, N, M, nx, seed, shift=10.0):
 
 
 @pytest.mark.parametrize("nx,T,N,M", [(1, 5, 37, 5), (2, 20, 1000, 64),
-                                      (3, 6, 4099, 33), (8, 4, 300, 16)])
+                                      (3, 6, 4099, 33), (8, 4, 300, 16),
+                                      (2, 4, 65536, 24)])
 def test_ffbs_kernel_matches_twin(cuda_device, nx, T, N, M):
     """Kernel J against its twin on the same inputs: the MAP columns
-    (no noise) exactly, and with the same Philox stream at most 0.1 % of
-    the (t, m) draws apart (a near-tie broken by a one-ulp difference;
-    expected none: the kernel rounds every operation as the twin does);
-    never a -inf column; every row a forward particle."""
+    (no noise) exactly, and with the same uniforms at most 0.1 % of the
+    (t, m) draws apart (expected none: kernel and twin round every
+    operation alike, and expf is what torch.exp calls); never a -inf
+    column; every row a forward particle.  N = 4099 and 65536 sweep
+    several chunks of 1024 columns (the chunk search, the chosen chunk
+    scored again, the row read from L2), the others one (staged whole,
+    the row read from shared memory)."""
     args = _ffbs_inputs(cuda_device, T, N, M, nx, seed=nx)
     xf = args[3]
     for noise_on in (False, True):
@@ -763,6 +840,29 @@ def test_ffbs_kernel_matches_twin(cuda_device, nx, T, N, M):
         for t in range(T - 1):
             assert torch.equal(out[t], xf[t][idx[t].long()])
         assert torch.equal(out[-1], args[4])
+
+
+def test_ffbs_kernel_edge_rows_and_block_shapes(cuda_device):
+    """Kernel J's draw on the rows its rule singles out, against the
+    twin, bitwise: a step with no finite score (column 0), a step with
+    NaN scores (never drawn), a step whose weights fall by 200 across the
+    chunks; at M = 21 (a trajectory a block) and M = 141 (two a block on
+    132 SMs, the last block's second warp idle)."""
+    for N, M in ((1000, 21), (5000, 21), (1000, 141)):
+        args = list(_ffbs_inputs(cuda_device, 5, N, M, 2, seed=N))
+        wfc = args[1].clone()
+        wfc[0] = float("-inf")
+        wfc[1, ::2] = float("nan")
+        wfc[2] = torch.linspace(-200.0, 0.0, N, device=cuda_device)
+        args[1] = wfc
+        for noise_on in (False, True):
+            ref, ridx = ffbs.ffbs_backward_plain(*args, 5, noise=noise_on,
+                                                 return_indices=True)
+            assert bool((ridx[0] == 0).all())
+            assert not bool((ridx[1] % 2 == 0).any())
+            out, idx = ffbs.ffbs_backward_scan(*args, 5, noise=noise_on,
+                                               return_indices=True)
+            assert torch.equal(idx, ridx) and torch.equal(out, ref)
 
 
 def test_ffbs_kernel_refuses(cuda_device):
@@ -1118,10 +1218,10 @@ def test_index_gather_bitwise(cuda_device, nx, profile):
     for dtype in (torch.float32, torch.float64):
         x = torch.randn(N, nx, generator=g, dtype=dtype)
         out_p, j_p = resample_v2.systematic_resample_plain(x, we, r)
-        before = resample_v2.SYSTEMATIC_INDEX_GATHER.launches
+        before = resample_v2.SYSTEMATIC_RESAMPLE.launches
         out, j = resample_v2.systematic_resample(
             x.to(cuda_device), we.to(cuda_device), r.to(cuda_device))
-        assert resample_v2.SYSTEMATIC_INDEX_GATHER.launches == before + 1
+        assert resample_v2.SYSTEMATIC_RESAMPLE.launches == before + 1
         assert j.dtype == torch.int32
         assert torch.equal(j.cpu(), j_p) and torch.equal(out.cpu(), out_p)
     if profile == "single":
@@ -1155,10 +1255,10 @@ def test_systematic_resample_bitwise(cuda_device, N, profile):
         for nx, xdt in ((2, wdt), (8, torch.float32), (2, torch.float64)):
             x = torch.randn(N, nx, generator=g, dtype=xdt)
             out_p, j_p = resample_v2.systematic_resample_plain(x, we, r)
-            before = resample_v2.SYSTEMATIC_INDEX_GATHER.launches
+            before = resample_v2.SYSTEMATIC_RESAMPLE.launches
             out, j = resample_v2.systematic_resample(
                 x.to(cuda_device), we.to(cuda_device), r.to(cuda_device))
-            assert resample_v2.SYSTEMATIC_INDEX_GATHER.launches == before + 1
+            assert resample_v2.SYSTEMATIC_RESAMPLE.launches == before + 1
             assert j.dtype == torch.int32
             assert torch.equal(j.cpu(), j_p) and torch.equal(out.cpu(), out_p)
         if profile == "single":
@@ -1217,13 +1317,13 @@ def test_pf_tracking_routes_on_card(cuda_device):
     assert pf_scan.PF_MOMENTS_SCAN.launches == before + 1
     assert m.shape == (60, 2) and bool(torch.isfinite(m).all())
     sols = []
-    e0 = resample_v2.SYSTEMATIC_INDEX_GATHER.launches
+    e0 = resample_v2.SYSTEMATIC_RESAMPLE.launches
     for exact in (True, False):
         sols.append(pf.replace(exact_resample=exact).forward_trajectory(
             uc, yc, generator=g.manual_seed(1)))
     resamples = int((1.0 / (sols[0].we ** 2).sum(-1) < 0.1 * pf.N).sum())
     assert resamples >= 1
-    assert resample_v2.SYSTEMATIC_INDEX_GATHER.launches == e0 + resamples
+    assert resample_v2.SYSTEMATIC_RESAMPLE.launches == e0 + resamples
     for f in ("x", "w", "we", "ll"):
         assert torch.equal(getattr(sols[0], f), getattr(sols[1], f)), f
     b0 = resample_route.SYSTEMATIC_GATHER.launches

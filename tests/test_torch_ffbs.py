@@ -9,7 +9,8 @@ package's.
 - The plain backward loop against the JAX XLA path (``backend="xla"``) on
   one shared forward pass, with JAX's own Gumbel draws and terminal
   indices fed to the port: the same trajectories, exactly.
-- The twin's Gumbel-max draws against the categorical law they sample.
+- The twin's inverse-CDF draws against the categorical law they sample,
+  their edge rows, and their summation order against a scalar loop.
 """
 import jax
 import jax.numpy as jnp
@@ -62,26 +63,75 @@ def test_twin_map_matches_pallas_interpret():
     assert torch.equal(again, out)
 
 
-def test_twin_gumbel_draws_sample_the_weights():
-    """One step, 20000 trajectories from one backward state over four
-    columns of log-weights w: the share of each column is softmax(w)
-    within 4 standard errors; the noise is Gumbel(0, 1) (mean 0.5772),
-    strictly finite, and differs between steps and trajectories."""
-    M, N = 20000, 4
-    w = torch.tensor([[0.0, -1.0, 0.5, -np.inf]])
-    zpred = torch.zeros(1, N, 1)
+@pytest.mark.parametrize("N,cols,M", [(4, (0, 1, 2, 3), 20000),
+                                      (2100, (5, 1100, 2050, 2099), 6000)])
+def test_twin_inverse_cdf_draws_sample_the_weights(N, cols, M):
+    """One step, M trajectories from one backward state, log-weights
+    (0, -1, 0.5, -inf) on four columns (the rest -inf; N = 2100 spreads
+    them over three chunks of 1024): each column's share is softmax(w)
+    within 4 standard errors and the -inf column is never drawn; the
+    uniforms lie strictly inside (0, 1) and differ between steps and
+    trajectories."""
+    w = torch.full((1, N), float("-inf"))
+    w[0, list(cols)] = torch.tensor([0.0, -1.0, 0.5, float("-inf")])
     xf = torch.arange(N, dtype=torch.float32).reshape(1, N, 1)
     out, idx = ffbs.ffbs_backward_plain(
-        zpred, w, torch.zeros(1, 1), xf, torch.zeros(M, 1),
+        torch.zeros(1, N, 1), w, torch.zeros(1, 1), xf, torch.zeros(M, 1),
         torch.ones(1, 1), torch.zeros(1), 11, return_indices=True)
     share = torch.bincount(idx[0].long(), minlength=N).double() / M
     p = torch.softmax(w[0].double(), 0)
     assert bool(((share - p).abs() <= 4 * (p * (1 - p) / M).sqrt()).all())
-    g = ffbs.gumbel_plain(3, 2, 64, 4096)
-    assert bool(torch.isfinite(g).all())
-    assert abs(float(g.mean()) - 0.5772) < 0.01
-    assert not torch.equal(g, ffbs.gumbel_plain(3, 1, 64, 4096))
-    assert not torch.equal(g[0], g[1])
+    assert int((idx == cols[3]).sum()) == 0
+    u = ffbs.uniforms_plain(3, 2, 4096)
+    assert bool((u > 0).all() and (u < 1).all())
+    assert abs(float(u.mean()) - 0.5) < 0.02
+    assert not torch.equal(u, ffbs.uniforms_plain(3, 1, 4096))
+
+
+def test_inverse_cdf_edges():
+    """The draw's edge rows: no finite score (NaN and -inf) takes column
+    0; u * total = total takes the last column of nonzero weight; a tiny
+    u the first; a -inf or NaN column is never drawn, in one chunk or
+    across chunks (the first chunk all -inf)."""
+    inf = float("inf")
+    w = torch.tensor([[-inf, float("nan"), -inf, -inf],
+                      [-inf, 0.0, 0.5, -inf],
+                      [-inf, 0.0, 0.5, -inf],
+                      [float("nan"), -1.0, -inf, 2.0]])
+    col = ffbs.inverse_cdf_plain(w, torch.tensor([0.5, 1.0, 1e-7, 1.0]))
+    assert col.tolist() == [0, 2, 1, 3]
+    big = torch.full((2, 3000), -inf)
+    big[:, 1500] = 0.0
+    big[:, 2999] = -3.0
+    big[1, 2500] = float("nan")
+    col = ffbs.inverse_cdf_plain(big, torch.tensor([1e-7, 1.0]))
+    assert col.tolist() == [1500, 2999]
+
+
+@pytest.mark.parametrize("R", [1, 3])
+def test_lane_prefix_is_the_kernel_order(R):
+    """The twin's summation order, written in PyTorch ops
+    (``ffbs.lane_prefix``), equals a loop over float32 scalars in kernel
+    J's order: each lane's prefix left to right, then the lanes' totals
+    by the Kogge-Stone scan (add the value 1, 2, 4, 8, 16 lanes down)."""
+    rng = np.random.default_rng(R)
+    e = (rng.random((2, R, 32)) ** 8).astype(np.float32)
+    Q, E, tot = ffbs.lane_prefix(torch.tensor(e))
+    f32 = np.float32
+    for b in range(2):
+        q = np.zeros((R, 32), np.float32)
+        for lane in range(32):
+            acc = f32(0.0)
+            for i in range(R):
+                acc = f32(acc + e[b, i, lane])
+                q[i, lane] = acc
+        incl = [q[R - 1, lane] for lane in range(32)]
+        for d in (1, 2, 4, 8, 16):
+            incl = [f32(incl[lane] + incl[lane - d]) if lane >= d
+                    else incl[lane] for lane in range(32)]
+        np.testing.assert_array_equal(Q[b].numpy(), q)
+        np.testing.assert_array_equal(E[b].numpy(), [0.0] + incl[:31])
+        assert tot[b].item() == incl[31]
 
 
 def _models(N, dtype):

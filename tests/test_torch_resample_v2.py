@@ -49,10 +49,10 @@ def test_twin_bitwise_equals_jax_kernel(profile, nx):
     out_j, j_j = jax_fused_systematic_gather(jnp.asarray(x), jnp.asarray(we),
                                              key)
     r = torch.tensor(float(jax.random.uniform(key, (), jnp.float32)))
-    before = resample_v2.SYSTEMATIC_INDEX_GATHER.launches
+    before = resample_v2.SYSTEMATIC_RESAMPLE.launches
     out_t, j_t = llpt.fused_systematic_gather(torch.tensor(x),
                                               torch.tensor(we), r=r)
-    assert resample_v2.SYSTEMATIC_INDEX_GATHER.launches == before  # twin
+    assert resample_v2.SYSTEMATIC_RESAMPLE.launches == before  # twin
     assert j_t.dtype == torch.int32
     np.testing.assert_array_equal(j_t.numpy(), np.asarray(j_j))
     np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
@@ -175,3 +175,27 @@ def test_slot_stage_twin_matches_jax_slots(dtype, kind):
     jt = np.searchsorted(Kt, np.arange(N), side="right").clip(max=N - 1)
     np.testing.assert_array_equal(j.numpy(), jt)
     np.testing.assert_array_equal(out.numpy(), x[jt])
+
+
+@pytest.mark.parametrize("shape,dtype,takes", [
+    ((1 << 24,), torch.float32, True),
+    (((1 << 24) + 1,), torch.float32, False),
+    ((1 << 24,), torch.float64, True), ((4096,), torch.float16, False),
+    ((0,), torch.float32, False), ((2, 4096), torch.float32, False)])
+def test_route_predicate(shape, dtype, takes):
+    """Kernel E's admission (``kernel_takes``), asked of shapes: 1-D,
+    float32 or float64, 1 <= N <= 2^24.  Its checks (``_weights``) use it:
+    a tensor it refuses raises there, TypeError for the dtype or shape,
+    ValueError for N, so the card's route (``_systematic_slots``: E's slot
+    stage or ``_cumsum``) and the kernel agree.  Small tensors stand for
+    the refusals that do not depend on N."""
+    assert resample_v2.kernel_takes(shape, dtype) is takes
+    if len(shape) == 1 and shape[0] > 4096:
+        return
+    we = torch.ones(shape, dtype=dtype)
+    if takes:
+        resample_v2._weights(we, 0.5, shape[0], "t")
+    else:
+        with pytest.raises(TypeError if dtype == torch.float16 or len(shape)
+                           > 1 else ValueError):
+            resample_v2._weights(we, 0.5, shape[-1], "t")
