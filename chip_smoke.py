@@ -30,9 +30,12 @@ exits non-zero without its result lines):
    the predict route; launches and host synchronizations a step
    (``torch.profiler``).
 6. the KF bank, ``kf_bank_loglik`` on the benchmark's bank model
-   (bench.py:423-469): kernel F against its twin at B = 1024, T = 200;
-   the route and one launch each of kernels K and F per call at B = 1024
-   and B = 8192; ll against a float64 CPU oracle; median time of 5.
+   (bench.py:423-469): kernel F against its twin at B = 1024, T = 200,
+   and against the float64 plane path (on the card) at a sweep's bank
+   (B = 8192, T = 2000) and long records (B = 256, T = 1e4), its CUDA-event
+   and device times and bytes bound at each; the route and one launch
+   each of kernels K and F per call at B = 1024 and B = 8192; ll against
+   a float64 CPU oracle; median time of 5.
 7. the temporal-parallel KF (bench.py:724-736): kernel K's filter and
    smooth scans against their twin at T = 1e5, two calls bitwise equal,
    their CUDA-event and device times; ``loglik``,
@@ -2116,16 +2119,16 @@ def main():
     kf32 = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2,
                                             dtype=torch.float32, device=dev)
 
-    def bank_data(Bk, seed):
+    def bank_data(Bk, seed, T=T_BANK):
         """Bk trajectories of the model, simulated in f64 on the CPU."""
         g = torch.Generator().manual_seed(seed)
         At, Bt, Ct = (torch.tensor(M, dtype=torch.float64) for M in (A, B, C))
         L1c = torch.linalg.cholesky(torch.tensor(R1, dtype=torch.float64))
         L2c = torch.linalg.cholesky(torch.tensor(R2, dtype=torch.float64))
-        us = torch.full((Bk, T_BANK, 1), 0.3, dtype=torch.float64)
+        us = torch.full((Bk, T, 1), 0.3, dtype=torch.float64)
         x = torch.randn(Bk, 2, generator=g, dtype=torch.float64) @ L1c.T
         ys = []
-        for t in range(T_BANK):
+        for t in range(T):
             ys.append(x @ Ct.T + torch.randn(Bk, 2, generator=g,
                                               dtype=torch.float64) @ L2c.T)
             x = x @ At.T + us[:, t] @ Bt.T + torch.randn(
@@ -2146,16 +2149,55 @@ def main():
     require(torch.allclose(llf, llp, rtol=2e-5, atol=1e-4),
             "bank kernel F within rtol 2e-5, atol 1e-4 of its twin")
     Bk, S = ysb.shape[0], scal.shape[1]
+
+    def f_bound(Bk, T):
+        # per member-step: Z 2ny(ny + nu + nx), dll 3ny, x 2nx(nx + ny + nu)
+        return bound(4 * (Bk * T * 3 + T * S + 2 + Bk),
+                     Bk * T * (2 * 2 * 5 + 6 + 1 + 2 * 2 * 5))
+
+    def f_call():
+        return bank_scan.bank_loglik_scan(scal, ysb, usb, x0, 2, 2, 1)
+
     stats["bank_loglik"] = dict(
         max_abs_err=float((llf - llp).abs().max()),
-        ms=cuda_ms(lambda: bank_scan.bank_loglik_scan(scal, ysb, usb, x0, 2,
-                                                      2, 1), 50),
+        ms=cuda_ms(f_call, 50),
+        device_ms=device_ms(f_call, "bank_loglik"),
         plain_ms=cuda_ms(lambda: bank_scan.bank_loglik_scan_plain(
             scal, ysb, usb, x0, 2, 2, 1), 1),
         library_ms=None,  # a T-step recursion: no one PyTorch call
-        # per member-step: Z 2ny(ny + nu + nx), dll 3ny, x 2nx(nx + ny + nu)
-        **bound(4 * (Bk * T_BANK * 3 + T_BANK * S + 2 + Bk),
-                Bk * T_BANK * (2 * 2 * 5 + 6 + 1 + 2 * 2 * 5)))
+        **f_bound(Bk, T_BANK))
+    # F at a sweep's bank and on long records, against the float64 plane
+    # path on the card, rtol 1e-5: a step's term is about 1 / T of |ll|
+    # (1e-4 at T = 1e4), so a dropped step fails (each call's own
+    # launches, not the main path's)
+    kf64d = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2,
+                                             dtype=torch.float64, device=dev)
+    cases = [dict(B=Bk, T=T_BANK, ms=stats["bank_loglik"]["ms"],
+                  device_ms=stats["bank_loglik"]["device_ms"],
+                  bound_ms=stats["bank_loglik"]["bound_ms"])]
+    for Bc, Tc, seed in ((8192, 2000, 64), (256, 10_000, 65)):
+        us64c, ys64c = bank_data(Bc, seed, Tc)
+        usc, ysc = us64c.float().to(dev), ys64c.float().to(dev)
+        _, *rec, _, Ac, Bc_, Cc, Dc = tbank._shared_recursion(
+            kf32, Tc, torch.float32, dev)
+        scal_c, cst_c = bank_scan.bank_scalars(*rec, Ac, Bc_, Cc, Dc, 1)
+
+        def fc():
+            return bank_scan.bank_loglik_scan(scal_c, ysc, usc, x0, 2, 2, 1)
+
+        llc = (fc() + cst_c.float()).double()
+        oracle = tbank.kf_bank_loglik(kf64d, us64c.to(dev), ys64c.to(dev),
+                                      method="plane")
+        relc = float(((llc - oracle).abs() / oracle.abs()).max())
+        require(bool(torch.isfinite(llc).all()) and relc < 1e-5,
+                f"B={Bc} T={Tc}: kernel F within 1e-5 of the f64 plane path "
+                f"(got {relc:.3g})")
+        cases.append(dict(B=Bc, T=Tc, ms=cuda_ms(fc, 20),
+                          device_ms=device_ms(fc, "bank_loglik", 10),
+                          bound_ms=f_bound(Bc, Tc)["bound_ms"],
+                          max_rel_f64_plane=relc))
+        del us64c, ys64c, usc, ysc, oracle
+    stats["bank_loglik"]["cases"] = cases
     elems_b = temporal._filter_elements_p(
         *(temporal._m_split(M) if M.ndim == 3 else temporal._v_split(M)
           for M in (Am, torch.zeros(T_BANK, 2, device=dev), Cm,
@@ -2165,7 +2207,8 @@ def main():
     x_b = torch.stack(temporal._leaves(elems_b), -1)
     k_bank_ms = cuda_ms(lambda: assoc_scan.plane_scan(x_b, 2,
                                                       assoc_scan.FILTER), 50)
-    log("F bank_loglik", f"B={Bk} T={T_BANK}: {stats['bank_loglik']}; "
+    log("F bank_loglik", f"B={Bk} T={T_BANK} and the cases: "
+        f"{stats['bank_loglik']} ({smi}); "
         f"kernel K on the bank's T={T_BANK} elements {k_bank_ms:.4f} ms")
 
     # the bank's main path: one K and one F launch a call

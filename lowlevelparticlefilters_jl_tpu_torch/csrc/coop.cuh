@@ -25,6 +25,14 @@ __device__ __forceinline__ void llpf_async_copy(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
                "l"(src), "n"(bytes));
 }
+// 16 bytes from device to shared memory through L2 only (cp.async.cg), so
+// the copy takes no L1 line while it is in flight.
+__device__ __forceinline__ void llpf_async_copy_cg(void* dst,
+                                                   const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
 __device__ __forceinline__ void llpf_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

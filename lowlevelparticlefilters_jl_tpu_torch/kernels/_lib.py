@@ -55,7 +55,7 @@ _SIGNATURES = {
     "llpf_assoc_scan": [_P, _P, _P, _I64, _I64, _I, _I, _P],
     "llpf_assoc_scan_full": [_P, _P, _P, _I64, _I64, _I, _P],
     "llpf_bank_loglik": [_P, _I, _P, _P, _I64, _P, _P, _I64, _I, _I, _I, _I,
-                         _P],
+                         _I, _I, _I, _P, _P],
     "llpf_akf_scan": [_P] * 9 + [_F, _I, _I, _I] + [_P] * 9,
     "llpf_akf_scan_stats": [_P] * 9 + [_F, _I, _I, _I] + [_P] * 10,
     "llpf_ffbs_backward": [_P] * 11 + [_I, _I, _I, _I, _U64, _I, _P],

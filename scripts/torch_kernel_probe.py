@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Probe kernels C (normal draws), G, H, I (whole scans), A (the
 bootstrap PF in one launch), D (the PF's propagate step), E and B (the
-systematic resample), K (the temporal-parallel scans) and J (the FFBS
-backward pass) on the card: device time against host time, the compiled
-step loops, A's time a step, the cost of a grid sync, H's prefix and
-tail, D's step, E's resample, K's launches, J's step and B's gather.
+systematic resample), K (the temporal-parallel scans), J (the FFBS
+backward pass) and F (the KF bank) on the card: device time against host
+time, the compiled step loops, A's time a step, the cost of a grid sync,
+H's prefix and tail, D's step, E's resample, K's launches, J's step, B's
+gather and F's scan.
 
     python3 scripts/torch_kernel_probe.py [noise] [scan] [pf] [sync] [akf] [prop]
-        [resample] [kscan] [ffbs] [gather] [--out DIR]
+        [resample] [kscan] [ffbs] [gather] [bank] [--out DIR]
 
 Needs one CUDA card.  Runs the named sections (all without arguments).
 It reads the kernels of the checkout it lies in, so a copy of it in
@@ -82,7 +83,18 @@ tree only, and reads neither G's nor H's step loop.
   share of the bytes bound N (4 + 2 * 4 nx) B at 3.35 TB/s; then at
   N = 1e5 and 2^25, U^20, float32 and float64 rows, the copy of a row as
   one vector against the copy word by word (the rows one element off
-  alignment), in turns.
+  alignment), in turns;
+- ``bank``: kernel F (``bank_scan.bank_loglik_scan``) on the benchmark's
+  bank model (nx = ny = 2, a per-member input, nu = 1, float32) at
+  (B, T) = (1024, 200), (8192, 2000), (256, 1e4), and at odd T and
+  T = 2 mod 4, (8192, 2001) and (8192, 2002), where members' rows start
+  off a 16-byte boundary: ms a call by CUDA events (back to back),
+  device ms by ``torch.profiler``, the bytes bound 4 B T (ny + nu) +
+  4 T S bytes at 3.35 TB/s and its share, the largest difference from
+  the tree's own twin at B = 1024; the host-clock median of
+  ``kf_bank_loglik`` (20 calls with a synchronize) at B = 1024 and 8192;
+  where the tree's F reports them (``stats=``), block 0's first warp's
+  ``clock64`` split (``bank_scan.CLOCKS``) with one member a warp.
 
 Prints one line per measurement and, last, the card's ``nvidia-smi`` name
 and power limit.
@@ -735,6 +747,77 @@ def gather_section(dev):
                   f"{times['words']} ({unit}); bitwise True", flush=True)
 
 
+def _bank_inputs(dev, Bk, T, seed):
+    """Kernel F's inputs on the benchmark's bank model: the port's shared
+    recursion and scalars, N(0, 1) outputs and 0.3 N(0, 1) inputs."""
+    from lowlevelparticlefilters_jl_tpu_torch import convert
+    from lowlevelparticlefilters_jl_tpu_torch.filters import bank as tbank
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import bank_scan
+
+    A = [[0.97043, -0.097368], [0.097368, 0.970437]]
+    kf = convert.kalman_filter_from_numpy(
+        A, [[0.1], [0.0]], [[1.0, 0.0], [0.0, 1.0]], 0,
+        [[0.01, 0.0], [0.0, 0.01]], [[0.1, 0.0], [0.0, 0.1]],
+        dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ys = torch.randn(Bk, T, 2, generator=g, device=dev)
+    us = 0.3 * torch.randn(Bk, T, 1, generator=g, device=dev)
+    _, Sch, K, _, Am, Bm, Cm, Dm = tbank._shared_recursion(
+        kf, T, torch.float32, dev)
+    scal, _ = bank_scan.bank_scalars(Sch, K, Am, Bm, Cm, Dm, 1)
+    return kf, scal, ys, us, kf.d0.mean.float().contiguous()
+
+
+def bank_section(dev):
+    """Kernel F's scan (module doc)."""
+    import inspect
+
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import _lib, bank_scan
+
+    _lib.library()
+    params = inspect.signature(bank_scan.bank_loglik_scan).parameters
+    for Bk, T in ((1024, 200), (8192, 2000), (256, 10_000), (8192, 2001),
+                  (8192, 2002)):
+        kf, scal, ys, us, x0 = _bank_inputs(dev, Bk, T, 900 + Bk)
+        S = scal.shape[1]
+        bound = 4 * (Bk * T * 3 + T * S + 2 + Bk) / 3.35e12 * 1e3
+        fn = lambda: bank_scan.bank_loglik_scan(  # noqa: E731
+            scal, ys, us, x0, 2, 2, 1)
+        reps = 50 if Bk * T <= 1e6 else 20
+        ms = events_ms(fn, reps)
+        kern = device_kernels_ms(fn, 10)
+        dev_ms = sum(kern.values())
+        line = (f"bank F B={Bk} T={T}: {ms:.5f} ms a call by CUDA events "
+                f"({reps} back to back); device {dev_ms:.5f} ms "
+                f"(torch.profiler, 10 calls) {kern}; bytes bound "
+                f"{bound:.6f} ms, {bound / dev_ms:.3f} of it")
+        if Bk == 1024:
+            diff = (fn() - bank_scan.bank_loglik_scan_plain(
+                scal, ys, us, x0, 2, 2, 1)).abs().max()
+            line += f"; max |kernel - twin| {float(diff):.3g}"
+        print(line, flush=True)
+        if T in (200, 2000):
+            med = host_ms(lambda: llpt.kf_bank_loglik(kf, us, ys), 20)
+            print(f"bank kf_bank_loglik B={Bk} T={T}: host median {med:.4f} "
+                  f"ms (20 calls, synchronize each), route "
+                  f"{llpt.last_route('kf_bank_loglik')}", flush=True)
+        if "stats" in params:
+            st = torch.zeros(len(bank_scan.CLOCKS), dtype=torch.int64,
+                             device=dev)
+            rows = []
+            for _ in range(5):
+                bank_scan.bank_loglik_scan(scal, ys, us, x0, 2, 2, 1,
+                                           stats=st)
+                rows.append(st.tolist())
+            med = [statistics.median(c) for c in zip(*rows)]
+            nseg = -(-T // (32 * bank_scan.bank_plan(T, 2, 2, 1)))
+            print(f"bank F B={Bk} T={T} one member a warp, block 0's first "
+                  f"warp's clock64 cycles (median of 5): "
+                  f"{dict(zip(bank_scan.CLOCKS, med))}; {nseg} segments, "
+                  f"{med[-1] / nseg:.0f} cycles a segment", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -749,7 +832,7 @@ def main():
         out = Path(args[k + 1])
         del args[k:k + 2]
     sections = set(args) or {"noise", "scan", "pf", "sync", "akf", "prop",
-                             "resample", "kscan", "ffbs", "gather"}
+                             "resample", "kscan", "ffbs", "gather", "bank"}
     print(f"clocks: {smi('clocks.sm,clocks.max.sm')}", flush=True)
     if "noise" in sections:
         noise_section(dev)
@@ -771,6 +854,8 @@ def main():
         ffbs_section(dev)
     if "gather" in sections:
         gather_section(dev)
+    if "bank" in sections:
+        bank_section(dev)
 
     print(smi("name,power.limit"), flush=True)
     return 0

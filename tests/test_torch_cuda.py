@@ -313,30 +313,92 @@ def test_assoc_scan_matches_twin(cuda_device, kind, nx, T):
         torch.testing.assert_close(o.cpu(), r, rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("Bk,T,nu,shared", [(1024, 200, 1, False),
-                                            (37, 70, 1, True),
-                                            (300, 65, 0, False)])
-def test_bank_kernel_matches_twin(cuda_device, Bk, T, nu, shared):
-    """Kernel F against its plain twin on the card, rtol 2e-5, atol 1e-4
-    (f32; the kernel contracts multiply-adds); T crosses the 64-step
-    staging of the scalars, B a partial block."""
-    kf = convert.kalman_filter_from_numpy(
-        A, B if nu else None, C, 0, R1, R2, dtype=torch.float32,
-        device=cuda_device)
-    g = torch.Generator().manual_seed(Bk)
-    ys = torch.randn(Bk, T, 2, generator=g).to(cuda_device)
-    us = (0.3 * torch.randn(T, nu, generator=g).to(cuda_device)
+def _bank_case(Bk, T, nx, nu, shared, device):
+    """Kernel F's inputs for a bank of Bk members: the 2-state model (or
+    a random 4-state one with ny = 4), N(0, 1) outputs and 0.3 N(0, 1)
+    inputs (one sequence for the bank where ``shared``)."""
+    if nx == 2:
+        kf = convert.kalman_filter_from_numpy(
+            A, B if nu else None, C, 0, R1, R2, dtype=torch.float32,
+            device=device)
+    else:
+        rng = np.random.default_rng(nx)
+        G1, G2 = rng.normal(size=(nx, nx)), rng.normal(size=(nx, nx))
+        kf = convert.kalman_filter_from_numpy(
+            0.9 * np.linalg.qr(rng.normal(size=(nx, nx)))[0],
+            0.2 * rng.normal(size=(nx, nu)), rng.normal(size=(nx, nx)),
+            0.05 * rng.normal(size=(nx, nu)),
+            0.01 * (G1 @ G1.T + nx * np.eye(nx)),
+            0.1 * (G2 @ G2.T + nx * np.eye(nx)), dtype=torch.float32,
+            device=device)
+    ny = kf.ny
+    g = torch.Generator().manual_seed(Bk + T)
+    ys = torch.randn(Bk, T, ny, generator=g).to(device)
+    us = (0.3 * torch.randn(T, nu, generator=g).to(device)
           [None].expand(Bk, T, nu) if shared
-          else 0.3 * torch.randn(Bk, T, nu, generator=g).to(cuda_device))
+          else 0.3 * torch.randn(Bk, T, nu, generator=g).to(device))
     _, Sch, K, _, Am, Bm, Cm, Dm = tbank._shared_recursion(
-        kf, T, torch.float32, cuda_device)
+        kf, T, torch.float32, device)
     scal, _ = bank_scan.bank_scalars(Sch, K, Am, Bm, Cm, Dm, nu)
-    x0 = kf.d0.mean.float().contiguous()
+    return scal, ys, us, kf.d0.mean.float().contiguous(), nx, ny, nu
+
+
+@pytest.mark.parametrize("Bk,T,nx,nu,shared", [
+    (1024, 200, 2, 1, False), (8192, 2000, 2, 1, False),
+    (256, 10_000, 2, 1, False), (37, 70, 2, 1, True), (300, 65, 2, 0, False),
+    (2049, 65, 2, 0, False), (1023, 33, 2, 1, False), (4097, 65, 2, 1, False),
+    (5, 1, 2, 1, False), (37, 1, 4, 4, False), (37, 33, 4, 4, False),
+    (513, 2001, 2, 1, False), (37, 33, 4, 2, False)])
+def test_bank_kernel_matches_twin(cuda_device, Bk, T, nx, nu, shared):
+    """Kernel F against its plain twin on the card, rtol 2e-5, atol 1e-4
+    (f32; the kernel contracts multiply-adds): phase 6's bank, a sweep
+    (B = 8192, T = 2000), a long record (B = 256, T = 1e4, 45 segments),
+    a shared input, no input, banks that are no multiple of a block's
+    members (2049 at 8, 1023 at 4, 4097 at 16: two a warp, the last warp
+    with one), T = 1, nx = ny = nu = 4, and odd T, where the members'
+    rows start 0-3 floats past a 16-byte boundary (u at nu = 1, 2)."""
+    args = _bank_case(Bk, T, nx, nu, shared, cuda_device)
     before = bank_scan.BANK_LOGLIK.launches
-    got = bank_scan.bank_loglik_scan(scal, ys, us, x0, 2, 2, nu)
+    got = bank_scan.bank_loglik_scan(*args)
     assert bank_scan.BANK_LOGLIK.launches == before + 1
-    want = bank_scan.bank_loglik_scan_plain(scal, ys, us, x0, 2, 2, nu)
+    want = bank_scan.bank_loglik_scan_plain(*args)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-4)
+
+
+def test_bank_kernel_nan_stays_in_its_member(cuda_device):
+    """A NaN in one member's y makes that member's ll NaN on the card and
+    leaves the other 1023 bit for bit as they were."""
+    scal, ys, us, x0, nx, ny, nu = _bank_case(1024, 200, 2, 1, False,
+                                              cuda_device)
+    before = bank_scan.BANK_LOGLIK.launches
+    ll0 = bank_scan.bank_loglik_scan(scal, ys, us, x0, nx, ny, nu)
+    ys = ys.clone()
+    ys[17, 123, 0] = float("nan")
+    ll1 = bank_scan.bank_loglik_scan(scal, ys, us, x0, nx, ny, nu)
+    assert bank_scan.BANK_LOGLIK.launches == before + 2
+    keep = torch.arange(1024, device=cuda_device) != 17
+    assert torch.isnan(ll1[17]) and torch.isfinite(ll0).all()
+    assert torch.equal(ll1[keep], ll0[keep])
+
+
+def test_bank_kernel_member_independent_of_bank(cuda_device):
+    """A member's ll on the card is the same, bit for bit, in banks of 512,
+    513 and 4096 members (4 warps a block and one member a warp, or 16
+    and two), and from views whose data starts off a 16-byte boundary
+    (the wrapper copies them), at T = 2001."""
+    scal, ys, us, x0, nx, ny, nu = _bank_case(4096, 2001, 2, 1, False,
+                                              cuda_device)
+    before = bank_scan.BANK_LOGLIK.launches
+    whole = bank_scan.bank_loglik_scan(scal, ys, us, x0, nx, ny, nu)
+    assert torch.isfinite(whole).all()
+    for Bk in (512, 513):
+        part = bank_scan.bank_loglik_scan(scal, ys[:Bk], us[:Bk], x0, nx,
+                                          ny, nu)
+        assert torch.equal(part, whole[:Bk])
+    assert ys[1:].data_ptr() % 16 and us[1:].data_ptr() % 16
+    tail = bank_scan.bank_loglik_scan(scal, ys[1:], us[1:], x0, nx, ny, nu)
+    assert torch.equal(tail, whole[1:])
+    assert bank_scan.BANK_LOGLIK.launches == before + 4
 
 
 def test_bank_and_parallel_routes_on_card(cuda_device):
