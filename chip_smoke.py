@@ -121,9 +121,30 @@ exits non-zero without its result lines):
    the process group is destroyed.
    Phases 17-18 print medians of 5 calls and the card's busy share of a
    call (``torch.profiler``).
+20. parameter estimation on the benchmark's model (``paramest_phase``,
+   sizes in ``PARAMEST``), float32 on the card: ``metropolis`` over the
+   log R2 scale on the KF at T = 1e5 (every ``loglik`` on kernel K) and
+   at T = 200 (kernel H), 100 iterations each, the ll at five samples
+   within 1e-4 of the float64 CPU value, the acceptance rate in
+   (0.05, 0.95); PMMH on the PF at N = 1e5, T = 1000 (30 iterations, a
+   generator to each ll, every ll on kernel A, each within 1 % of the KF
+   ll at its θ; the admission of a new filter and A's time apart);
+   ``autotune_covariances`` from (10·R1, 0.05·R2): an LM iteration's
+   Jacobian and residuals timed at T = 1000, and at T = 200, 20
+   iterations, θ within 1e-3 of the
+   float64 CPU run of the same call, a better ll, R2 within 3× of the
+   truth (the residuals on the sequential route, under
+   ``torch.func.jacrev``); ``ukf_bank_loglik`` of the affine UKF at
+   B = 1024, T = 200 (kernel F and K, each member within 1e-4 of float64
+   ``kf_bank_loglik``) and of the quadtank UKF at B = 64 (``bank_vmap``);
+   ``forward_trajectory`` of a KF with a callable time-varying A at
+   T = 1e5 (kernel K, ``sol.ok`` all true, the ll within 1e-4 of float64)
+   and with a state-dependent A (``sol.ok`` all false); ``loglik`` of
+   either takes no kernel (sequential, checked against float64 at
+   T = 500).
 
 Launch counts are reset just before each path's run (phases 4-5, 6, 7,
-8, 9, 10, 11, 12, 13, 14, 15, 17 and 18) and read just after it; every
+8, 9, 10, 11, 12, 13, 14, 15, 17, 18 and 20) and read just after it; every
 kernel of the path must have launched there.  The kernels line (with
 each kernel's bound: the larger of its bytes over 3.35 TB/s and its
 operations over 67 T/s; kernel A's segment mode, which two paths run,
@@ -1701,6 +1722,323 @@ def smoother_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2):
         + ", ".join(f"{k} {v:.3f}" for k, v in meds.items()) + f" ({smi})")
 
 
+#: phase 20's sizes (the module doc): ``tune`` is (T, iters) of the LM
+#: runs held against each other; an LM iteration is also timed at
+#: ``T_tune_timed`` (an iteration there takes about 7 s on the card)
+PARAMEST = dict(T_long=100_000, T_short=200, R_kf=100, N_pf=100_000,
+                T_pf=1000, R_pf=30, tune=(200, 20), T_tune_timed=1000,
+                B_bank=1024, T_bank=200, B_quad=64, T_seq=500)
+
+
+def paramest_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2,
+                   sizes=PARAMEST):
+    """Phase 20: parameter estimation and the leftovers of the landed
+    slices on the benchmark's 2-state model (see the module doc); adds
+    each path's launches to ``launches``."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch import convert, routing
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import (
+        assoc_scan, bank_scan, pf_scan, ukf_scan)
+
+    K, H = assoc_scan.ASSOC_SCAN, ukf_scan.AKF_SCAN
+    F, PF = bank_scan.BANK_LOGLIK, pf_scan.PF_LOGLIK_SCAN
+    t_phase = time.perf_counter()
+    An, Bn, Rn1, Rn2 = (np.array(M, dtype=np.float64)
+                        for M in (A, B, R1, R2))
+    prior = [llpt.Normal(0.0, 1.0)]
+
+    def sim(T, seed):
+        """The model's data, u = 0.3 (numpy, float64)."""
+        rng = np.random.default_rng(seed)
+        w = rng.multivariate_normal(np.zeros(2), Rn1, T)
+        v = rng.multivariate_normal(np.zeros(2), Rn2, T)
+        x, ys = np.zeros(2), np.empty((T, 2))
+        for k in range(T):
+            ys[k] = x + v[k]
+            x = An @ x + 0.3 * Bn[:, 0] + w[k]
+        return (torch.full((T, 1), 0.3, dtype=torch.float64),
+                torch.from_numpy(ys))
+
+    def kf_at(s, dtype=torch.float32, device=dev, R1_=Rn1, R2_=Rn2):
+        return convert.kalman_filter_from_numpy(
+            A, B, C, 0, R1_, s * R2_, dtype=dtype, device=device)
+
+    def rw(step):
+        def draw(theta, g):
+            return theta + step * torch.randn(theta.shape, generator=g,
+                                              dtype=theta.dtype)
+        return draw
+
+    def chain(ll, R, theta0, step, seed, takes_key=False):
+        """A metropolis chain with every call's route; ms an iteration."""
+        routes = []
+
+        def tracked(theta, generator=None):
+            v = ll(theta, generator) if takes_key else ll(theta)
+            routes.append(llpt.last_route())
+            return v
+
+        g = torch.Generator().manual_seed(seed)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        thetas, lls = llpt.metropolis(
+            tracked, R, torch.tensor([theta0], dtype=torch.float64),
+            rw(step), generator=g, ll_takes_key=takes_key)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / R * 1e3
+        acc = float((thetas[1:] != thetas[:-1]).any(-1).double().mean())
+        return thetas[:, 0], lls, routes, ms, acc, {
+            k.name: k.launches for k in kernels}
+
+    def against_f64(what, thetas, lls, u, y, idx, method, tol):
+        """ll (prior included) at chosen samples against the float64 CPU
+        value at the same θ."""
+        worst = 0.0
+        for i in idx:
+            s = math.exp(float(thetas[i]))
+            ref = float(llpt.loglik(kf_at(s, torch.float64, "cpu"), u, y,
+                                    method=method)
+                        + prior[0].logpdf(thetas[i]))
+            worst = max(worst, abs(float(lls[i]) - ref) / abs(ref))
+        require(worst < tol, f"{what}: ll within {tol:g} of the f64 CPU "
+                f"'{method}' value at samples {idx} (got {worst:.3g})")
+        return worst
+
+    # ---- PMMH on the KF: kernel K at T = 1e5, kernel H at T = 200 -------
+    out = {}
+    for tag, T, route, kern, step in (
+            ("long", sizes["T_long"], "cuda_temporal_parallel", K, 0.004),
+            ("short", sizes["T_short"], "cuda_fused_scan", H, 0.07)):
+        u, y = sim(T, seed=21 if tag == "long" else 22)
+        u32, y32 = u.float().to(dev), y.float().to(dev)
+        ll = llpt.log_likelihood_fun(
+            lambda th: kf_at(math.exp(float(th[0]))), prior, u32, y32)
+        R = sizes["R_kf"]
+        thetas, lls, routes, ms, acc, path = chain(ll, R, 0.02, step, 31)
+        require(set(routes) == {route}, f"PMMH KF T={T}: every loglik on "
+                f"{route} (got {sorted(set(routes))})")
+        require(path[kern.name] >= R, f"PMMH KF T={T}: a {kern.name} "
+                f"launch a call ({path})")
+        require(0.05 < acc < 0.95, f"PMMH KF T={T}: acceptance {acc:.3f} "
+                "in (0.05, 0.95)")
+        idx = [0, R // 4, R // 2, 3 * R // 4, R - 1]
+        rel = against_f64(f"PMMH KF T={T}", thetas, lls, u, y, idx,
+                          "parallel", 1e-4)
+        launches[kern.name] += path[kern.name]
+        out[tag] = (u, y, u32, y32)
+        log("paramest", f"PMMH KF T={T}: {R} iterations, {ms:.3f} ms an "
+            f"iteration, route {route} ({path[kern.name]} {kern.name} "
+            f"launches), acceptance {acc:.3f}, θ {float(thetas[0]):.4f} -> "
+            f"{float(thetas[-1]):.4f}, worst rel vs f64 {rel:.3g} ({smi})")
+
+    # ---- PMMH on the PF: kernel A ----------------------------------------
+    N, T = sizes["N_pf"], sizes["T_pf"]
+    u, y = sim(T, seed=23)
+    u32, y32 = u.float().to(dev), y.float().to(dev)
+    fcb, gcb = convert.linear_callbacks(A, B, C, device=dev)
+
+    def pf_at(th):
+        return convert.particle_filter_from_numpy(
+            N, fcb, gcb, R1, math.exp(float(th[0])) * Rn2, R1,
+            resample_threshold=THRESH, device=dev)
+
+    ll = llpt.log_likelihood_fun(pf_at, prior, u32, y32)
+    R = sizes["R_pf"]
+    thetas, lls, routes, ms, acc, path = chain(ll, R, 0.02, 0.03, 32,
+                                               takes_key=True)
+    require(set(routes) == {"cuda_fused_scan"} and path[PF.name] >= R,
+            f"PMMH PF: every loglik on kernel A ({sorted(set(routes))}, "
+            f"{path[PF.name]} launches)")
+    launches[PF.name] += path[PF.name]
+    worst, kf_ll = 0.0, {}
+    for i in range(R):
+        th = float(thetas[i])
+        if th not in kf_ll:
+            kf_ll[th] = float(llpt.loglik(kf_at(math.exp(th), torch.float64,
+                                                "cpu"), u, y,
+                                          method="parallel"))
+        ll_kf = kf_ll[th]
+        ll_pf = float(lls[i]) - float(prior[0].logpdf(thetas[i]))
+        worst = max(worst, abs(ll_pf - ll_kf) / abs(ll_kf))
+    require(worst < 0.01, f"PMMH PF: every sample's PF ll within 1 % of "
+            f"|ll_KF| at its θ (got {worst:.3g})")
+    pfs = [pf_at(torch.tensor([0.01 * i])) for i in range(6)]
+    adm = []
+    for pf in pfs[:5]:  # a new filter's admission, as each θ's is
+        t0 = time.perf_counter()
+        pf_scan.kernel_admits(pf, u32, y32)
+        torch.cuda.synchronize()
+        adm.append((time.perf_counter() - t0) * 1e3)
+    coef = pf_scan.kernel_admits(pfs[5], u32, y32)
+    n0 = PF.launches
+    k_ms = cuda_ms(lambda: pf_scan.pf_loglik_fused(pfs[5], u32, y32, 7,
+                                                   coef=coef), 5)
+    PF.launches = n0
+    log("paramest", f"PMMH PF N={N} T={T}: {R} iterations, {ms:.3f} ms an "
+        f"iteration (admission of a new filter {statistics.median(adm):.3f} "
+        f"ms, host median; kernel A {k_ms:.3f} ms, CUDA events), "
+        f"acceptance {acc:.3f}, worst |ll_PF - ll_KF| / |ll_KF| "
+        f"{worst:.3g} ({smi})")
+
+    # ---- autotune_covariances: LM through the sequential recursion -------
+    start = dict(R1_=10 * Rn1, R2_=0.05 * Rn2)
+    # an LM iteration at T_tune_timed: the residuals' Jacobian and one
+    # pass of the residuals (the candidate's cost), timed apart
+    u, y = sim(sizes["T_tune_timed"], seed=24)
+    kf0 = kf_at(1.0, **start)
+    th0 = torch.log(torch.tensor([0.1, 0.1, 0.005, 0.005], device=dev))
+
+    def residuals(th):
+        f = llpt.reconstruct_filter(kf0, torch.diag(torch.exp(th[:2])),
+                                    torch.diag(torch.exp(th[2:])))
+        return llpt.prediction_errors(f, u.float().to(dev),
+                                      y.float().to(dev), loglik=True,
+                                      offset=5.0)
+
+    t_parts = []
+    for fn in (lambda: torch.func.jacrev(residuals)(th0),
+               lambda: residuals(th0)):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t_parts.append(time.perf_counter() - t0)
+    T, iters = sizes["tune"]
+    u, y = u[:T], y[:T]
+    runs = {}
+    for where, dt, d in (("card", torch.float32, dev),
+                         ("f64 CPU", torch.float64, "cpu")):
+        t0 = time.perf_counter()
+        _, info = llpt.autotune_covariances(
+            kf_at(1.0, dt, d, **start), u.to(dt).to(d), y.to(dt).to(d),
+            iters=iters, offset=5.0)
+        runs[where] = (info, (time.perf_counter() - t0) / iters)
+        require(llpt.last_route("prediction_errors") == "sequential",
+                f"autotune ({where}): the residuals on the sequential route")
+    info, s_it = runs["card"]
+    th32, th64 = info["theta"].double().cpu(), runs["f64 CPU"][0]["theta"]
+    rel = float(((th32 - th64).abs() / th64.abs()).max())
+    require(rel < 1e-3, f"autotune: θ on the card within 1e-3 of the f64 "
+            f"CPU run (got {rel:.3g})")
+    ll0 = float(llpt.loglik(kf_at(1.0, torch.float64, "cpu", **start), u, y))
+    kfo = convert.kalman_filter_from_numpy(
+        A, B, C, 0, info["R1"].double().cpu().numpy(),
+        info["R2"].double().cpu().numpy(), device="cpu")
+    ll1 = float(llpt.loglik(kfo, u, y))
+    ratio = torch.diagonal(info["R2"]).double().cpu() / torch.tensor(
+        np.diag(Rn2))
+    require(ll1 > ll0 and bool(((ratio > 1 / 3) & (ratio < 3)).all()),
+            f"autotune: ll {ll0} -> {ll1}, R2's diagonal / truth {ratio}")
+    log("paramest", f"autotune_covariances: an LM iteration at "
+        f"T={sizes['T_tune_timed']} on the card {sum(t_parts):.3f} s (the "
+        f"Jacobian {t_parts[0]:.3f}, the residuals {t_parts[1]:.3f}); T={T}, "
+        f"iters={iters}: {s_it:.3f} s an iteration on the card, "
+        f"{runs['f64 CPU'][1]:.3f} s in f64 on the host; ll {ll0:.3f} -> "
+        f"{ll1:.3f}; R2 diag / truth {ratio.tolist()}; θ rel vs f64 "
+        f"{rel:.3g} ({smi})")
+
+    # ---- ukf_bank_loglik: the affine reroute on kernel F; quadtank vmap --
+    Bk, T = sizes["B_bank"], sizes["T_bank"]
+    g = torch.Generator().manual_seed(25)
+    us64 = torch.full((T, 1), 0.3, dtype=torch.float64)
+    ys64 = 0.3 * torch.randn(Bk, T, 2, generator=g, dtype=torch.float64)
+    ukf = llpt.make_ukf(fcb, gcb, kf_at(1.0).R1, kf_at(1.0).R2, nu=1, ny=2)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    llb = llpt.ukf_bank_loglik(ukf, us64.float().to(dev),
+                               ys64.float().to(dev))
+    torch.cuda.synchronize()
+    dtb = (time.perf_counter() - t0) * 1e3
+    path = {k.name: k.launches for k in kernels}
+    route = llpt.last_route("ukf_bank_loglik")
+    require(route == "cuda_bank_kernel" and path[F.name] == 1
+            and path[K.name] >= 1, f"ukf_bank_loglik: route {route}, "
+            f"launches {path}")
+    launches[F.name] += path[F.name]
+    launches[K.name] += path[K.name]
+    oracle = llpt.kf_bank_loglik(kf_at(1.0, torch.float64, "cpu"), us64,
+                                 ys64)
+    relb = float(((llb.double().cpu() - oracle).abs() / oracle.abs()).max())
+    require(relb < 1e-4, f"ukf_bank_loglik: every member within 1e-4 of "
+            f"f64 kf_bank_loglik (got {relb:.3g})")
+    medb = host_median_ms(lambda: llpt.ukf_bank_loglik(
+        ukf, us64.float().to(dev), ys64.float().to(dev)))
+    qt = quadtank_ukf(dev, torch.float32)
+    yq = 1.0 + 0.1 * torch.randn(sizes["B_quad"], T, 2, generator=g)
+    llq = llpt.ukf_bank_loglik(qt, None, yq.to(dev))
+    rq = llpt.last_route("ukf_bank_loglik")
+    ll_q0 = float(llpt.loglik(qt, None, yq[0].to(dev), method="sequential"))
+    require(rq == "bank_vmap" and bool(torch.isfinite(llq).all())
+            and abs(float(llq[0]) - ll_q0) <= 1e-4 * abs(ll_q0),
+            f"quadtank UKF bank: route {rq}, member 0 {float(llq[0])} "
+            f"against the sequential {ll_q0}")
+    log("paramest", f"ukf_bank_loglik B={Bk} T={T}: route {route}, one F "
+        f"and {path[K.name]} K launch(es), worst rel vs f64 {relb:.3g}; "
+        f"first call {dtb:.1f} ms, median of 5 {medb:.3f} ms; quadtank "
+        f"B={sizes['B_quad']}: {rq} ({smi})")
+
+    # ---- callable matrices on the temporal-parallel path -----------------
+    u, y, u32, y32 = out["long"]
+    T = y.shape[0]
+
+    def tv_A(An_):
+        def Af(x, u_, p, t):
+            return An_ * (1.0 + 0.01 * torch.cos(0.001 * torch.as_tensor(t)))
+        return Af
+
+    def dep_A(An_):
+        def Af(x, u_, p, t):
+            return An_ * (1.0 + 0.01 * torch.tanh(x[0]))
+        return Af
+
+    def kf_fn(Af, dtype, device):
+        Ad = torch.tensor(An, dtype=dtype, device=device)
+        base = kf_at(1.0, dtype, device)
+        return llpt.KalmanFilter(Af(Ad), base.B, base.C, 0, base.R1,
+                                 base.R2, d0=base.d0)
+
+    for k in kernels:
+        k.launches = 0
+    sol = llpt.forward_trajectory(kf_fn(tv_A, torch.float32, dev), u32, y32)
+    path = {k.name: k.launches for k in kernels}
+    require(sol.route == "cuda_temporal_parallel" and bool(sol.ok.all())
+            and path[K.name] >= 1, f"callable A (state-independent): route "
+            f"{sol.route}, ok {bool(sol.ok.all())}, launches {path}")
+    launches[K.name] += path[K.name]
+    ref = llpt.forward_trajectory(kf_fn(tv_A, torch.float64, "cpu"), u, y,
+                                  method="parallel")
+    relc = abs(float(sol.ll) - float(ref.ll)) / abs(float(ref.ll))
+    require(relc < 1e-4, f"callable A: ll within 1e-4 of f64 CPU (got "
+            f"{relc:.3g})")
+    sold = llpt.forward_trajectory(kf_fn(dep_A, torch.float32, dev), u32,
+                                   y32)
+    require(sold.route == "cuda_temporal_parallel"
+            and not bool(sold.ok.any()), "state-dependent A: sol.ok false "
+            f"at every step (route {sold.route})")
+    Ts = sizes["T_seq"]
+    for Af in (tv_A, dep_A):
+        kfc = kf_fn(Af, torch.float32, dev)
+        for k in kernels:
+            k.launches = 0
+        got = routing.route_kalman_loglik(kfc, u32, y32, None, "auto")
+        ll_s = llpt.loglik(kfc, u32[:Ts], y32[:Ts])
+        ll_r = llpt.loglik(kf_fn(Af, torch.float64, "cpu"), u[:Ts], y[:Ts])
+        n = sum(k.launches for k in kernels)
+        require(got is None and llpt.last_route() == "sequential" and n == 0
+                and abs(float(ll_s) - float(ll_r)) < 1e-4 * abs(float(ll_r)),
+                f"loglik of a callable A takes no kernel ({n} launches, "
+                f"route {llpt.last_route()}) and agrees with f64 at "
+                f"T={Ts}")
+    medc = host_median_ms(lambda: llpt.forward_trajectory(
+        kf_fn(tv_A, torch.float32, dev), u32, y32))
+    log("paramest", f"forward_trajectory, callable A, T={T}: "
+        f"{sol.route}, ok all, rel vs f64 {relc:.3g}, median of 5 "
+        f"{medc:.3f} ms; state-dependent A: ok none; loglik of either: "
+        f"sequential, no launch ({smi})")
+    log("paramest", f"phase in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2373,6 +2711,7 @@ def main():
                     lattice_case)
     sharded_phases(dev, kernels, stats, launches, smi, kf, kf32, data, model,
                    (u6m, y6m, ll6m_ref))
+    paramest_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2)
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"build included")
 

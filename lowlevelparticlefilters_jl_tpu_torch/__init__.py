@@ -6,8 +6,11 @@ package mirrors its layout file for file and is held against it by the
 (sequential and temporal-parallel), the UKF and EKF (and IEKF), the
 measurement models, the shared-Riccati KF bank, the bootstrap particle
 filter with the advanced and auxiliary particle filters, the scalar
-noise densities, and the smoothers (RTS, MBF, the UKF/EKF backward
-passes, the temporal-parallel and iterated parallel smoothers, FFBS).
+noise densities, the smoothers (RTS, MBF, the UKF/EKF backward
+passes, the temporal-parallel and iterated parallel smoothers, FFBS),
+parameter estimation (prediction errors, PMMH, covariance tuning), the
+constant, time-stacked, callable and indexing system matrices, and the
+reference's flat accessor verbs.
 On CUDA tensors ``pf.loglik``, ``mean_trajectory(pf, ...)`` and
 ``pf_stats_fused`` run the whole recursion as one hand-written kernel
 (kernels/pf_scan.py), the ``exact_resample`` resampling runs kernel E
@@ -44,9 +47,21 @@ from .ops.logsumexp import (
     expnormalize,
     effective_particles,
 )
-from .ops.linalg import blkdiag, symmetrize
-from .ops.mvnormal import MvNormal, as_mvnormal, mvnormal_logpdf
-from .ops.matrices import TimeVarying, resolve_mat
+from .ops.linalg import blkdiag, positive_qr_r, symmetrize, symmetrize_psd
+from .ops.mvnormal import (MvNormal, as_mvnormal, mvnormal_logpdf,
+                           mvnormal_logpdf_cov)
+from .ops.matrices import (FnMat, IndexingMatrix, TimeVarying,
+                           TransposedIndexingMatrix, indexing_matrix,
+                           is_constant_mat, resolve_mat)
+from .ops.discretize import (
+    rk4,
+    double_integrator_covariance,
+    double_integrator_covariance_smooth,
+    n_integrator_covariance,
+    n_integrator_covariance_smooth,
+)
+from .ops.constraints import (truncated_scalar_moments, project_bound,
+                              truncated_moment_match)
 from .ops.resample import (
     resample,
     resample_systematic,
@@ -106,7 +121,11 @@ from .kernels.ukf_scan import (
 from .trajectory import (
     forward_trajectory,
     loglik,
+    sse,
+    loglik_x,
     simulate,
+    simulate_ensemble,
+    rollout,
     weighted_mean,
     weighted_cov,
     weighted_quantile,
@@ -118,13 +137,44 @@ from .utils.solutions import (KalmanFilteringSolution,
                               ParticleFilteringSolution)
 from .routing import METHODS, last_route
 from .filters.bank import (KFBankSolution, kf_bank_admissible,
-                           kf_bank_forward, kf_bank_loglik)
+                           kf_bank_forward, kf_bank_loglik, ukf_bank_loglik,
+                           ekf_bank_loglik)
 from .parallel.temporal import (parallel_forward_trajectory,
                                 parallel_rts_smooth, parallel_iekf_smooth,
                                 parallel_ukf_smooth)
 from .smoothing import (smooth, rts_smooth, smooth_mbf, ffbs_smooth,
                         smoothed_mean, smoothed_cov, smoothed_trajs)
 from .parallel.bank import bank_forward_trajectory, bank_loglik
+from .paramest import (
+    triangular,
+    invtriangular,
+    reconstruct_filter,
+    prediction_errors,
+    log_likelihood_fun,
+    naive_sampler,
+    metropolis,
+    metropolis_parallel,
+    autotune_covariances,
+)
+from .utils.signal_names import SignalNames, default_names
+from .compat import (
+    index,
+    state,
+    covariance,
+    num_particles,
+    weights,
+    expweights,
+    particles,
+    particletype,
+    shouldresample,
+    update,
+    predict,
+    correct,
+    reset,
+    sample_measurement,
+    weigthed_mean,
+    weigthed_cov,
+)
 
 # naming aliases for users arriving from the reference package
 from .filters.ekf import make_iekf as IteratedExtendedKalmanFilter  # noqa

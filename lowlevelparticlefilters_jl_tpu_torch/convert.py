@@ -20,6 +20,7 @@ from .filters.particle import AdvancedParticleFilter, ParticleFilter
 from .filters.ukf import UnscentedKalmanFilter, make_ukf
 from .kernels._lib import default_device
 from .ops import distributions as dist
+from .ops.matrices import indexing_matrix
 from .ops.mvnormal import MvNormal
 from .utils.solutions import KalmanFilteringSolution, ParticleFilteringSolution
 
@@ -28,6 +29,18 @@ def _t(a, dtype, device) -> Optional[torch.Tensor]:
     if a is None:
         return None
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def _mat(a, dtype, device):
+    """A system matrix: arrays become tensors; a callable (written in
+    PyTorch by the caller) passes through; an indexing matrix (any object
+    with ``inds`` and ``n``, the JAX package's among them) becomes the
+    port's."""
+    if hasattr(a, "inds") and hasattr(a, "n"):
+        return indexing_matrix(np.asarray(a.inds), a.n, device=device)
+    if callable(a):
+        return a
+    return _t(a, dtype, device)
 
 
 def _density(mean, cov, dtype, device) -> MvNormal:
@@ -42,17 +55,19 @@ def kalman_filter_from_numpy(A, B, C, D, R1, R2, d0_mean=None, d0_cov=None,
                              dtype=torch.float64, device=None
                              ) -> KalmanFilter:
     """A :class:`KalmanFilter` from arrays.  ``A`` (and the others) may
-    be ``[T, ...]`` time-stacked.  ``D`` of 0 or None means no
-    feedthrough; ``d0`` defaults to N(0, R1)."""
+    be ``[T, ...]`` time-stacked, a torch callable ``(x, u, p, t) -> M``
+    (callables cannot cross packages: each side writes its own from the
+    same constants) or, for ``C``, an indexing matrix.  ``D`` of 0 or None
+    means no feedthrough; ``d0`` defaults to N(0, R1)."""
     device = default_device(device)
     d0 = None
     if d0_cov is not None:
         d0 = _density(d0_mean, d0_cov, dtype, device)
-    if D is not None and np.ndim(D) == 0 and float(D) == 0.0:
+    if D is not None and not callable(D) and np.ndim(D) == 0 \
+            and float(D) == 0.0:
         D = None
-    return KalmanFilter(_t(A, dtype, device), _t(B, dtype, device),
-                        _t(C, dtype, device), _t(D, dtype, device),
-                        _t(R1, dtype, device), _t(R2, dtype, device), d0=d0,
+    return KalmanFilter(*(_mat(M, dtype, device)
+                          for M in (A, B, C, D, R1, R2)), d0=d0,
                         Ts=Ts, alpha=alpha)
 
 

@@ -20,14 +20,15 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.matrices import resolve_mat
-from ..routing import (_needs_grad, _record, _under_batch_trace,
-                       _want_fused)
+from ..ops.matrices import (IndexingMatrix, TransposedIndexingMatrix,
+                            resolve_mat)
+from ..routing import (_arrays_only, _needs_grad, _record,
+                       _under_batch_trace, _want_fused)
 from ..utils.struct import struct
 from .kalman import kf_correct, kf_predict
 
 __all__ = ["kf_bank_admissible", "kf_bank_loglik", "kf_bank_forward",
-           "KFBankSolution"]
+           "KFBankSolution", "ukf_bank_loglik", "ekf_bank_loglik"]
 
 _LOG2PI = 1.8378770664093453
 BANK_METHODS = ("auto", "kernel", "plane")
@@ -49,12 +50,13 @@ class KFBankSolution:
 
 def kf_bank_admissible(kf) -> bool:
     """True when the shared-Riccati bank path applies: a plain
-    ``KalmanFilter`` (its matrices are tensors, so nothing in the
-    covariance recursion depends on a member's state) with a numeric
-    ``alpha``."""
+    ``KalmanFilter`` with a numeric ``alpha`` and no callable matrix (a
+    callable may depend on a member's state, and then the covariance
+    recursion is not shared).  An indexing matrix is densified."""
     from .kalman import KalmanFilter
 
-    return type(kf) is KalmanFilter and isinstance(kf.alpha, (int, float))
+    return (type(kf) is KalmanFilter and isinstance(kf.alpha, (int, float))
+            and _arrays_only(kf))
 
 
 def _resolve_stacked(M, T, n, m, dtype, device):
@@ -100,6 +102,8 @@ def _shared_recursion(kf, T, dtype, device):
         Mt = resolve_mat(M, zx, None, kf.p, tk, Ts=kf.Ts)
         if Mt is None:
             return torch.zeros((n, m), dtype=dtype, device=device)
+        if isinstance(Mt, (IndexingMatrix, TransposedIndexingMatrix)):
+            return Mt.todense(dtype, device)
         return Mt.to(dtype=dtype, device=device)
 
     R = P0
@@ -305,3 +309,82 @@ def _vmap_loglik(kf, u, y):
     from ..trajectory import loglik
 
     return loglik(kf, u, y)
+
+
+def ukf_bank_loglik(f, us, ys) -> torch.Tensor:
+    """Per-member log-likelihood ``[B]`` of a bank of datasets through one
+    shared nonlinear filter (a UKF or an EKF: ``dynamics`` and a
+    measurement model with ``measurement``).
+
+    When the static walk (``parallel/temporal.py::_callback_affine_in_x``)
+    finds both callbacks affine in (x, u), the unscented and the Jacobian
+    linearization are exact, so the filter is the Kalman filter of the
+    per-step Jacobians and the bank runs :func:`kf_bank_loglik` (kernel F
+    and K's element scan on CUDA float32).  The callbacks' offsets fold
+    into an augmented input column: u' = [u; 1], B' = [B c], D' = [D d].
+    Anything else (a callback the walk cannot prove affine, augmented
+    dynamics, UT hooks, callable covariances) takes ``vmap(loglik)``.
+    ``last_route("ukf_bank_loglik")`` names the path taken.
+    """
+    from ..parallel.temporal import _callback_affine_in_x
+    from ..routing import last_route
+    from .kalman import KalmanFilter
+
+    mm = f.measurement_model
+    dyn, h = f.dynamics, getattr(mm, "measurement", None)
+    nx = f.d0.mean.shape[-1]
+    nu = max(f.nu, 0)
+    p = f.p
+    hooks = ((mm, "innovation"), (mm, "mean"), (mm, "cov"),
+             (mm, "cross_cov"), (f, "state_mean"), (f, "state_cov"),
+             (f, "reject"))
+    ok = (h is not None and not getattr(f, "augmented_dynamics", False)
+          and not getattr(mm, "augmented", False)
+          and all(getattr(o, name, None) is None for o, name in hooks)
+          and isinstance(f.R1, torch.Tensor)
+          and isinstance(getattr(mm, "R2", None), torch.Tensor)
+          and getattr(mm, "R12", None) is None)
+    if ok:
+        m0 = f.d0.mean
+        gd = lambda z, u, pp, t: dyn(z[:nx], z[nx:], pp, t)  # noqa: E731
+        gh = lambda z, u, pp, t: h(z[:nx], z[nx:], pp, t)  # noqa: E731
+        zu0 = m0.new_zeros(0)
+        ok = (_callback_affine_in_x(gd, nx + nu, zu0, p, 0.0)
+              and _callback_affine_in_x(gh, nx + nu, zu0, p, 0.0))
+    us3, ys3, Bk, T = _bank_inputs(f, us, ys)
+    if not ok:
+        ll = torch.func.vmap(lambda u, y: _vmap_loglik(f, u, y))(us3, ys3)
+        _record("kf_bank_loglik", "bank_vmap")
+        _record("ukf_bank_loglik", "bank_vmap")
+        return ll
+
+    dtype, dev = ys3.dtype, ys3.device
+    vm, jac = torch.func.vmap, torch.func.jacfwd
+    tvec = torch.arange(T, dtype=dtype, device=dev) * f.Ts
+    zx = torch.zeros(nx, dtype=dtype, device=dev)
+    zu = torch.zeros(nu, dtype=dtype, device=dev)
+    cj = vm(lambda t: dyn(zx, zu, p, t))(tvec)                   # [T, nx]
+    dj = vm(lambda t: h(zx, zu, p, t))(tvec)                     # [T, ny]
+    ny = dj.shape[-1]
+    Fj = vm(lambda t: jac(lambda x: dyn(x, zu, p, t))(zx))(tvec)
+    Hj = vm(lambda t: jac(lambda x: h(x, zu, p, t))(zx))(tvec)
+    if nu:
+        Bj = vm(lambda t: jac(lambda u: dyn(zx, u, p, t))(zu))(tvec)
+        Dj = vm(lambda t: jac(lambda u: h(zx, u, p, t))(zu))(tvec)
+    else:
+        Bj = torch.zeros((T, nx, 0), dtype=dtype, device=dev)
+        Dj = torch.zeros((T, ny, 0), dtype=dtype, device=dev)
+    kfe = KalmanFilter(
+        Fj, torch.cat([Bj, cj[:, :, None]], -1), Hj,
+        torch.cat([Dj, dj[:, :, None]], -1), f.R1.to(dtype),
+        mm.R2.to(dtype), d0=f.d0, Ts=f.Ts, p=p, nx=nx, nu=nu + 1, ny=ny,
+        check=False)
+    us_aug = torch.cat([us3, ys3.new_ones((Bk, T, 1))], -1)
+    ll = kf_bank_loglik(kfe, us_aug, ys3)
+    _record("ukf_bank_loglik", last_route("kf_bank_loglik"), last=False)
+    return ll
+
+
+#: an EKF bank takes the same routes (the Jacobian linearization of an
+#: affine model is exact too)
+ekf_bank_loglik = ukf_bank_loglik

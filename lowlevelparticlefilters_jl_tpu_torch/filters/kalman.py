@@ -13,7 +13,8 @@ from typing import Any
 import torch
 
 from ..ops.linalg import symmetrize, chol_lower, rdiv_chol
-from ..ops.matrices import MatLike, as_matspec, resolve_mat
+from ..ops.matrices import (IndexingMatrix, MatLike, as_matspec,
+                            resolve_mat)
 from ..ops.mvnormal import MvNormal, as_mvnormal, mvnormal_logpdf
 from ..utils.signal_names import SignalNames, default_names
 from ..utils.struct import struct
@@ -85,8 +86,9 @@ def kf_correct(x, R, Ct, Dt, u, y, R2, R12=None):
 class KalmanFilter(AbstractKalmanFilter):
     """Linear-Gaussian filter for ``x⁺ = Ax + Bu + w``, ``y = Cx + Du + e``.
 
-    Every system matrix is a constant tensor or a ``[T, ...]``
-    time-stacked tensor (ops/matrices.py).  ``alpha`` is the
+    Every system matrix is a constant tensor, a ``[T, ...]`` time-stacked
+    tensor, a callable ``(x, u, p, t) -> M`` or, for ``C``, an
+    :class:`IndexingMatrix` (ops/matrices.py).  ``alpha`` is the
     exponential-forgetting factor.
     """
 
@@ -120,6 +122,8 @@ class KalmanFilter(AbstractKalmanFilter):
             nu = self.B.shape[-1] if self.B.ndim >= 2 else 1
         if ny < 0 and isinstance(self.C, torch.Tensor) and self.C.ndim == 2:
             ny = self.C.shape[-2]
+        if ny < 0 and isinstance(self.C, IndexingMatrix):
+            ny = self.C.shape[0]
         if nx < 0 and self.d0 is not None and hasattr(self.d0, "mean"):
             nx = self.d0.mean.shape[-1]
         o(self, "nx", nx)
@@ -156,9 +160,14 @@ class KalmanFilter(AbstractKalmanFilter):
         x, R = kf_predict(state.x, state.R, At, Bt, u, R1, a)
         return KFState(x=x, R=R, t=state.t + 1)
 
-    def correct(self, state: KFState, u, y, p=None, t=None, R2=None):
+    def correct(self, state: KFState, u, y, p=None, t=None, R2=None,
+                mm=None):
+        """Measurement update; ``mm`` (a measurement model) takes the place
+        of the filter's own C, D, R2."""
         p = self.p if p is None else p
         t = state.t * self.Ts if t is None else t
+        if mm is not None:
+            return mm.correct(self, state, u, y, p, t)
         Ct = resolve_mat(self.C, state.x, u, p, t, Ts=self.Ts)
         Dt = resolve_mat(self.D, state.x, u, p, t, Ts=self.Ts)
         if R2 is None:

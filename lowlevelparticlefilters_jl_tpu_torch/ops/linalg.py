@@ -17,6 +17,13 @@ def symmetrize(X: torch.Tensor) -> torch.Tensor:
     return 0.5 * (X + X.transpose(-1, -2))
 
 
+def symmetrize_psd(X: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Symmetrize and clip the eigenvalues below ``eps`` (PSD repair)."""
+    vals, vecs = torch.linalg.eigh(symmetrize(X))
+    vals = torch.clamp(vals, min=eps)
+    return (vecs * vals[..., None, :]) @ vecs.transpose(-1, -2)
+
+
 def _chol_unrolled(S: torch.Tensor) -> torch.Tensor:
     """Cholesky–Banachiewicz with the dimension unrolled.  A matrix that
     is not positive definite yields NaNs instead of an exception, as in
@@ -127,3 +134,14 @@ def blkdiag(*mats: torch.Tensor) -> torch.Tensor:
 def logdet_chol(L: torch.Tensor) -> torch.Tensor:
     """log det(L L^T) = 2 sum(log diag L)."""
     return 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+
+
+def positive_qr_r(X: torch.Tensor) -> torch.Tensor:
+    """The upper-triangular R of a QR factorization of ``X`` with a
+    positive diagonal (rows of R flipped where its diagonal is negative;
+    a zero keeps its sign), as the square-root filters store their
+    covariance factors."""
+    R = torch.linalg.qr(X, mode="r")[1]
+    d = torch.sign(torch.diagonal(R, dim1=-2, dim2=-1))
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    return R * d[..., :, None]

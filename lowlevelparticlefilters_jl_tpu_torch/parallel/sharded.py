@@ -57,6 +57,7 @@ from ..filters.particle import PFInfo, PFState, _uniform_weights
 from ..kernels._lib import default_device
 from ..ops.linalg import chol_lower, rdiv_chol, symmetrize, tri_solve
 from ..ops.logsumexp import effective_particles
+from ..ops.matrices import FnMat
 from ..ops.mvnormal import as_mvnormal, mvnormal_logpdf_cov
 from ..ops.resample import _cumsum, _uniform
 from ..routing import _needs_grad, seed_from_generator
@@ -707,9 +708,12 @@ def _resolve_time_seqs(kf, u, y, mesh: Mesh):
     u_loc = _as_u_seq(u, T, y.dtype, y.device)[t0:t1]
     y_loc = y[t0:t1]
     m0, P0 = kf.d0.mean, kf.d0.cov
+    tvec = torch.arange(t0, t1, dtype=y.dtype, device=y.device) * kf.Ts
 
     def block(M):
-        return None if M is None else _resolve_seq(M, t1)[t0:]
+        if isinstance(M, FnMat):  # evaluated at the rank's own steps
+            return _resolve_seq(M, Tl, m0, u_loc, tvec, kf.p, kf.Ts)
+        return None if M is None else _resolve_seq(M, t1, m0)[t0:]
 
     F, B, H, D, Q, R = (block(M) for M in (kf.A, kf.B, kf.C, kf.D, kf.R1,
                                            kf.R2))

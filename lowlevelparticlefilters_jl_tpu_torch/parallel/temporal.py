@@ -34,7 +34,8 @@ from typing import Optional
 import torch
 
 from ..ops.linalg import chol_lower, rdiv_chol, solve_nopivot, symmetrize
-from ..ops.matrices import TimeVarying
+from ..ops.matrices import (FnMat, IndexingMatrix, TimeVarying,
+                            TransposedIndexingMatrix, resolve_mat)
 from ..ops.mvnormal import mvnormal_logpdf
 from ..utils.solutions import KalmanFilteringSolution, KalmanSmoothingSolution
 
@@ -73,13 +74,25 @@ def associative_scan(fn, elems, reverse: bool = False):
     return _rebuild(elems, iter(leaves))
 
 
-def _resolve_seq(M, T: int) -> Optional[torch.Tensor]:
+def _resolve_seq(M, T: int, x0=None, u_seq=None, tvec=None, p=None,
+                 Ts: float = 1.0) -> Optional[torch.Tensor]:
     """A matrix spec as a [T, ...] stack: a constant is expanded, a
     time-stacked tensor (or :class:`TimeVarying`) gives its first T
-    steps, as ``resolve_mat`` indexes it at step k.  The callable form
-    (``FnMat``) is not ported, so nothing here depends on the state."""
+    steps, as ``resolve_mat`` indexes it at step k; an indexing matrix is
+    densified (in ``x0``'s dtype and device); a callable is evaluated at
+    ``x0`` and each step's input ``u_seq[k]`` and time ``tvec[k]`` in one
+    ``vmap``, which is right only for a matrix that does not depend on
+    the state (:func:`_state_indep_flag` checks)."""
     if M is None:
         return None
+    if isinstance(M, (IndexingMatrix, TransposedIndexingMatrix)):
+        like = x0 if x0 is not None else torch.zeros(())
+        D = M.todense(like.dtype, like.device)
+        return D.expand(T, *D.shape)
+    if isinstance(M, FnMat):
+        out = torch.func.vmap(lambda uk, tk: resolve_mat(M, x0, uk, p, tk,
+                                                         Ts=Ts))(u_seq, tvec)
+        return out.expand(T, *out.shape[-2:]) if out.ndim == 2 else out
     data = M.data if isinstance(M, TimeVarying) else M
     if data.ndim == 2:
         return data.expand(T, *data.shape)
@@ -87,6 +100,41 @@ def _resolve_seq(M, T: int) -> Optional[torch.Tensor]:
         raise ValueError(f"a time-stacked matrix has {data.shape[0]} steps, "
                          f"the data {T}")
     return data[:T]
+
+
+def _state_indep_flag(M, x0, u0, p, t0, Ts: float = 1.0):
+    """The temporal-parallel path's guard for a callable matrix, which
+    :func:`_resolve_seq` evaluates at ``x0`` for every step: None for any
+    other spec, else a 0-dim bool tensor that is False when the matrix
+    changes with the state.  Two fixed directions are probed (a single
+    shift would pass a matrix periodic or flat along it); inputs are not
+    probed, since each step resolves the matrix at its own input.  The
+    solution verbs AND it into ``sol.ok``."""
+    if not isinstance(M, FnMat):
+        return None
+    a = resolve_mat(M, x0, u0, p, t0, Ts=Ts)
+    k = torch.arange(x0.shape[-1], dtype=x0.dtype, device=x0.device)
+    d1 = torch.cos(1.0 + 2.399963 * k)
+    d2 = torch.sin(0.5 + 1.618034 * k)
+    ok = torch.ones((), dtype=torch.bool, device=a.device)
+    for dx in (1.7 * d1, -0.9 * d2):
+        b = resolve_mat(M, x0 + dx, u0, p, t0, Ts=Ts)
+        ok = ok & ((a - b).abs() <= 1e-6 * (1.0 + a.abs())).all()
+    return ok
+
+
+def _callback_affine_in_x(fn, nx: int, u0, p, t0) -> bool:
+    """Static check that ``fn(x, u, p, t)`` is affine in x for every u and
+    t: the callback lowered at ``(0, u0, t0)`` (in ``u0``'s dtype and
+    device) and walked
+    (``kernels/ukf_scan.callback_affine_in_x``).  Fails closed on anything
+    the walk cannot prove affine."""
+    from ..kernels.ukf_scan import callback_affine_in_x
+
+    u0 = torch.as_tensor(u0)
+    x0 = torch.zeros(nx, dtype=u0.dtype, device=u0.device)
+    t0 = torch.as_tensor(t0, dtype=u0.dtype, device=u0.device)
+    return callback_affine_in_x(fn, x0, u0, p, t0) is not None
 
 
 def _mv_t(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -538,16 +586,20 @@ def _parallel_smooth_core_p(Fp, cp, Qp, xtp, Ctp, T):
     return _scan_smooth_p(_smooth_elements_p(Fp, cp, Qp, xtp, Ctp, T))
 
 
-def _affine_model(kf, u_seq, T, like):
+def _affine_model(kf, u_seq, T, like, p=None):
     """(F, c) stacks of the dynamics, c_k = B_k u_k (zeros, in ``like``'s
-    dtype and device, without an input)."""
-    nx = kf.d0.mean.shape[-1]
-    F = _resolve_seq(kf.A, T)
-    B = _resolve_seq(kf.B, T)
+    dtype and device, without an input); a callable is evaluated at each
+    step's input and time with ``p`` (the filter's own by default)."""
+    p = kf.p if p is None else p
+    tvec = torch.arange(T, dtype=like.dtype, device=like.device) * kf.Ts
+    m0 = kf.d0.mean
+    F = _resolve_seq(kf.A, T, m0, u_seq, tvec, p, kf.Ts)
+    B = _resolve_seq(kf.B, T, m0, u_seq, tvec, p, kf.Ts)
     if B is not None and u_seq.shape[-1]:
         c = _mv_t(B, u_seq)
     else:
-        c = torch.zeros((T, nx), dtype=like.dtype, device=like.device)
+        c = torch.zeros((T, m0.shape[-1]), dtype=like.dtype,
+                        device=like.device)
     return F, c
 
 
@@ -555,27 +607,32 @@ def parallel_forward_trajectory(kf, u, y, p=None) -> KalmanFilteringSolution:
     """O(log T)-depth Kalman filtering pass.
 
     Matches ``forward_trajectory``'s sequential solution (x, xt, R, Rt,
-    ll, e, S, K) for constant or time-stacked system matrices.  ``p`` is
-    accepted for the verb's signature; tensor matrices do not read it.
+    ll, e, S, K) for constant, time-stacked or callable system matrices
+    that do not depend on the state; a callable is evaluated at the prior
+    mean, and ``sol.ok`` is False at every step when one of them changes
+    with the state (:func:`_state_indep_flag`).
     """
     from ..trajectory import _as_u_seq
 
     T = y.shape[0]
     u_seq = _as_u_seq(u, T, y.dtype, y.device)
+    p = kf.p if p is None else p
+    tvec = torch.arange(T, dtype=y.dtype, device=y.device) * kf.Ts
     m0, P0 = kf.d0.mean, kf.d0.cov
-    F, c = _affine_model(kf, u_seq, T, y)
-    H = _resolve_seq(kf.C, T)
-    D = _resolve_seq(kf.D, T)
-    Q = _resolve_seq(kf.R1, T)
-    R = _resolve_seq(kf.R2, T)
+    F, c = _affine_model(kf, u_seq, T, y, p)
+    H, D, Q, R = (_resolve_seq(M, T, m0, u_seq, tvec, p, kf.Ts)
+                  for M in (kf.C, kf.D, kf.R1, kf.R2))
     y_eff = y - _mv_t(D, u_seq) if D is not None and u_seq.shape[-1] else y
     x_pred, R_pred, xt, Rt, e, S, Schol, K, lls = _parallel_filter_core(
         F, c, H, Q, R, y_eff, m0, P0)
+    ok = torch.isfinite(xt).all(-1)
+    for M in (kf.A, kf.B, kf.C, kf.D, kf.R1, kf.R2):
+        flag = _state_indep_flag(M, m0, u_seq[0], p, tvec[0], kf.Ts)
+        if flag is not None:
+            ok = ok & flag
     return KalmanFilteringSolution(
         u=u_seq, y=y, x=x_pred, xt=xt, R=R_pred, Rt=Rt, ll=lls.sum(), e=e,
-        K=K, S=S, extra=None,
-        t=torch.arange(T, dtype=y.dtype, device=y.device) * kf.Ts,
-        ok=torch.isfinite(xt).all(-1),
+        K=K, S=S, extra=None, t=tvec, ok=ok,
         route=scan_route(xt.shape[-1], y.shape[-1], xt))
 
 
@@ -588,8 +645,10 @@ def parallel_rts_smooth(kf, u, y, p=None,
     if sol is None:
         sol = parallel_forward_trajectory(kf, u, y, p)
     T = sol.y.shape[0]
-    F, c = _affine_model(kf, sol.u, T, sol.y)
-    Q = _resolve_seq(kf.R1, T)
+    p = kf.p if p is None else p
+    tvec = torch.arange(T, dtype=sol.y.dtype, device=sol.y.device) * kf.Ts
+    F, c = _affine_model(kf, sol.u, T, sol.y, p)
+    Q = _resolve_seq(kf.R1, T, kf.d0.mean, sol.u, tvec, p, kf.Ts)
     g, L = _parallel_smooth_core(F, c, Q, sol.xt, sol.Rt)
     return KalmanSmoothingSolution(sol=sol, xT=g, RT=L)
 
@@ -648,7 +707,8 @@ def parallel_iekf_smooth(ekf, u, y, p=None, *, iters: int = 8
     m0, P0 = ekf.d0.mean, ekf.d0.cov
     nx = m0.shape[-1]
     dyn, h = ekf.dynamics, mm.measurement
-    Q, R = _resolve_seq(ekf.R1, T), _resolve_seq(mm.R2, T)
+    Q, R = (_resolve_seq(M, T, m0, u_seq, tvec, p, ekf.Ts)
+            for M in (ekf.R1, mm.R2))
     vm = torch.func.vmap
 
     def linearize(xbar):
@@ -778,7 +838,8 @@ def parallel_ukf_smooth(ukf, u, y, p=None, *, iters: int = 8
     params = ukf.weight_params
     W = ukf_weights(params, nx)
     dyn, h = ukf.dynamics, mm.measurement
-    Q, R = _resolve_seq(ukf.R1, T), _resolve_seq(mm.R2, T)
+    Q, R = (_resolve_seq(M, T, m0, u_seq, tvec, p, ukf.Ts)
+            for M in (ukf.R1, mm.R2))
     vm = torch.func.vmap
     zx = torch.zeros_like(m0)
 

@@ -235,14 +235,28 @@ def route_pf_mean_trajectory(pf, u, y, p, generator, method: str):
     return means
 
 
-def _kf_parallel_ok(kf, T: int) -> bool:
+def _arrays_only(kf) -> bool:
+    """No system matrix of ``kf`` is a callable (``FnMat``)."""
+    from .ops.matrices import FnMat
+
+    return not any(isinstance(M, FnMat)
+                   for M in (kf.A, kf.B, kf.C, kf.D, kf.R1, kf.R2))
+
+
+def _kf_parallel_ok(kf, T: int, *, need_arrays: bool) -> bool:
     """Admission for the temporal-parallel KF: a plain ``KalmanFilter``
-    with alpha = 1, no R12, nx, ny <= 8 and at least 2 steps."""
+    with alpha = 1, no R12, nx, ny <= 8 and at least 2 steps.  A verb that
+    returns only a scalar (``loglik``) cannot carry the state-independence
+    flag of a callable matrix (``sol.ok``), so ``need_arrays`` refuses
+    callables; the solution verbs take them and AND the flag into
+    ``sol.ok`` (``parallel/temporal.py::_state_indep_flag``)."""
     from .filters.kalman import KalmanFilter
 
     if type(kf) is not KalmanFilter:
         return False
     if not isinstance(kf.alpha, (int, float)) or float(kf.alpha) != 1.0:
+        return False
+    if need_arrays and not _arrays_only(kf):
         return False
     return kf.R12 is None and kf.nx <= 8 and kf.ny <= 8 and T >= 2
 
@@ -308,7 +322,8 @@ def _route_kalman(verb, f, u, y, p, method):
         _record(verb, "sequential")
         return None
     if type(f) is KalmanFilter:
-        if _want_parallel(method, y, T) and _kf_parallel_ok(f, T):
+        if _want_parallel(method, y, T) and _kf_parallel_ok(
+                f, T, need_arrays=not traj):
             sol = parallel_forward_trajectory(f, u, y)
             _record(verb, sol.route)
             return sol if traj else sol.ll
@@ -375,7 +390,8 @@ def route_smooth(f, u, y, p, method: str, kwargs: dict):
             and not _under_batch_trace(f, u, y, p)
             and not (method == "auto" and _needs_grad(f, u, y, p))
             and _want_parallel(method, y, T)):
-        if type(f) is KalmanFilter and _kf_parallel_ok(f, T):
+        if type(f) is KalmanFilter and _kf_parallel_ok(f, T,
+                                                       need_arrays=False):
             fn = temporal.parallel_rts_smooth
         elif p is None and type(f) is UnscentedKalmanFilter and f.nx <= 8 \
                 and not f.augmented_dynamics:

@@ -3,7 +3,7 @@
 whole-scan UKF/EKF and smoothing calls goes.
 
     python3 scripts/torch_stage_breakdown.py [pf] [bank] [parallel] [scan]
-                                             [smooth] [track]
+                                             [smooth] [track] [paramest]
 
 Needs one CUDA card.  Runs the named sections (all without arguments),
 in f32:
@@ -30,6 +30,17 @@ in f32:
   ``pf_stats_fused`` at N = 1e5, T = 1000 on the benchmark's 2-state
   model, stages: the admission (probes and coefficients), the inputs,
   the seed draw, kernel A's moments mode with its wrapper;
+- ``paramest``: a PMMH iteration's parts, each θ building a new filter:
+  on the PF at N = 1e5, T = 1000 the admission of a new filter and
+  kernel A with its wrapper; on the KF at T = 200 ``loglik`` of a new
+  filter (kernel H and its admission) against a second call on the same
+  filter (the verdict kept); ``ukf_bank_loglik`` of the affine UKF at
+  B = 1024, T = 200 against its static walk and ``kf_bank_loglik`` of
+  the equivalent KF; and the LM residuals of ``autotune_covariances``
+  at T = 1000 (4 parameters): one pass, their Jacobian by
+  ``torch.func.jacfwd`` and by ``torch.func.jacrev``, on the card in
+  float32 and on the host in float64 (one call each after a warm-up at
+  T = 50; not in the default set: about 80 s);
 
 first as whole calls, then stage by stage through the same internal
 functions in the verb's order.  Each time is the median of 7 (host
@@ -348,6 +359,93 @@ def smooth_section(dev, line):
         profiled(f"{tag} one iteration: {name}", fn)
 
 
+def paramest_section(dev, line):
+    """The ``paramest`` section (see the module doc)."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch import convert
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import pf_scan
+    from lowlevelparticlefilters_jl_tpu_torch.parallel.temporal import (
+        _callback_affine_in_x)
+
+    g = torch.Generator().manual_seed(3)
+    scales = iter((1.0 + 0.001 * torch.arange(1, 1000)).tolist())
+
+    def kf_at(s, T, dtype=torch.float32, device=dev):
+        R2s = [[s * v for v in r] for r in R2]
+        return convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2s,
+                                                dtype=dtype, device=device)
+
+    # PMMH on the PF: a new filter's admission, then kernel A
+    T = 1000
+    u = torch.full((T, 1), 0.3, device=dev)
+    y = (0.3 * torch.randn(T, 2, generator=g)).to(dev)
+    f, gcb = convert.linear_callbacks(A, B, C, device=dev)
+
+    def pf_at(s):
+        R2s = [[s * v for v in r] for r in R2]
+        return convert.particle_filter_from_numpy(
+            100_000, f, gcb, R1, R2s, R1, resample_threshold=0.1,
+            device=dev)
+
+    coef = pf_scan.kernel_admits(pf_at(1.0), u, y)
+    line("paramest PF N=1e5 T=1000: a new filter's kernel_admits",
+         median_ms(lambda: pf_scan.kernel_admits(pf_at(next(scales)), u,
+                                                 y)))
+    pf = pf_at(1.0)
+    line("paramest PF: kernel A with its wrapper (coefficients given)",
+         median_ms(lambda: pf_scan.pf_loglik_fused(pf, u, y, 7,
+                                                   coef=coef)))
+    # PMMH on the KF at T = 200: kernel H with and without the admission
+    uh, yh = u[:200], y[:200]
+    line("paramest KF T=200: loglik of a new filter (H and admission)",
+         median_ms(lambda: llpt.loglik(kf_at(next(scales), 200), uh, yh)))
+    kfh = kf_at(1.0, 200)
+    line("paramest KF T=200: loglik of the same filter (verdict kept)",
+         median_ms(lambda: llpt.loglik(kfh, uh, yh)))
+    # the affine UKF bank: the whole call, its walk, the KF bank
+    Bk = 1024
+    ub = torch.full((200, 1), 0.3, device=dev)
+    ys = (0.3 * torch.randn(Bk, 200, 2, generator=g)).to(dev)
+    kfb = kf_at(1.0, 200)
+    ukf = llpt.make_ukf(f, gcb, kfb.R1, kfb.R2, nu=1, ny=2)
+    line(f"paramest ukf_bank_loglik B={Bk} T=200 (whole call)",
+         median_ms(lambda: llpt.ukf_bank_loglik(ukf, ub, ys)))
+    zu0 = torch.zeros(0, device=dev)
+    line("paramest ukf_bank_loglik: the static walk of both callbacks",
+         median_ms(lambda: [_callback_affine_in_x(
+             lambda z, uu, p, t, fn=fn: fn(z[:2], z[2:], p, t), 3, zu0,
+             None, 0.0) for fn in (f, gcb)]))
+    line("paramest ukf_bank_loglik: kf_bank_loglik of the equivalent KF",
+         median_ms(lambda: llpt.kf_bank_loglik(kfb, ub, ys)))
+    # the LM residuals and their Jacobian
+    for where, dtype, device in (("card f32", torch.float32, dev),
+                                 ("host f64", torch.float64, "cpu")):
+        for T in (50, 1000):
+            kf0 = kf_at(0.05, T, dtype, device)
+            uT = torch.full((T, 1), 0.3, dtype=dtype, device=device)
+            yT = (0.3 * torch.randn(T, 2, generator=g)).to(dtype).to(device)
+            th = torch.log(torch.tensor([0.01, 0.01, 0.005, 0.005],
+                                        dtype=dtype, device=device))
+
+            def res(t_, kf0=kf0, uT=uT, yT=yT):
+                fr = llpt.reconstruct_filter(
+                    kf0, torch.diag(torch.exp(t_[:2])),
+                    torch.diag(torch.exp(t_[2:])))
+                return llpt.prediction_errors(fr, uT, yT, loglik=True,
+                                              offset=5.0)
+
+            for name, fn in (("residuals", lambda: res(th)),
+                             ("jacfwd", lambda: torch.func.jacfwd(res)(th)),
+                             ("jacrev", lambda: torch.func.jacrev(res)(th))):
+                t0 = time.perf_counter()
+                fn()
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                if T == 1000:
+                    line(f"paramest LM T={T} {where}: {name} (one call)",
+                         (time.perf_counter() - t0) * 1e3)
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -544,6 +642,8 @@ def main():
         whole_scan_section(dev, line)
     if "smooth" in sections:
         smooth_section(dev, line)
+    if "paramest" in sections:
+        paramest_section(dev, line)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

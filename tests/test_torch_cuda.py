@@ -1591,3 +1591,101 @@ def test_sharded_verbs_on_card(cuda_device):
         assert abs(float(llf) - ref) < 0.02 * abs(ref)
     finally:
         dist.destroy_process_group()
+
+
+# ---- parameter estimation on the card: PMMH on K, H, A; the UKF bank on F --
+
+
+def _pmmh_data(T, seed):
+    kf64 = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, device="cpu")
+    u = torch.full((T, 1), 0.3, dtype=torch.float64)
+    _, u, y = llpt.simulate(kf64, u, torch.Generator().manual_seed(seed))
+    return u, y
+
+
+def _kf_scaled(s, dtype, device):
+    return convert.kalman_filter_from_numpy(A, B, C, 0, R1, s * np.asarray(R2),
+                                            dtype=dtype, device=device)
+
+
+def _pmmh(ll, R, takes_key=False):
+    g = torch.Generator().manual_seed(4)
+    draw = lambda th, gen: th + 0.02 * torch.randn(  # noqa: E731
+        th.shape, generator=gen, dtype=th.dtype)
+    routes = []
+
+    def tracked(th, gen=None):
+        v = ll(th, gen) if takes_key else ll(th)
+        routes.append(llpt.last_route())
+        return v
+
+    thetas, lls = llpt.metropolis(tracked, R, torch.tensor(
+        [0.02], dtype=torch.float64), draw, generator=g,
+        ll_takes_key=takes_key)
+    return thetas[:, 0], lls, set(routes)
+
+
+@pytest.mark.parametrize("T,route,kind", [
+    (400, "cuda_temporal_parallel", "assoc_scan"),
+    (200, "cuda_fused_scan", "akf_scan")])
+def test_pmmh_on_the_kf_kernels(cuda_device, T, route, kind):
+    """A few PMMH steps on a KF: every ll on kernel K (T >= 256) or H,
+    each within 1e-4 of the f64 CPU value at its θ."""
+    kern = {"assoc_scan": assoc_scan.ASSOC_SCAN,
+            "akf_scan": ukf_scan.AKF_SCAN}[kind]
+    u, y = _pmmh_data(T, 5)
+    prior = [llpt.Normal(0.0, 1.0)]
+    ll = llpt.log_likelihood_fun(
+        lambda th: _kf_scaled(float(torch.exp(th[0])), torch.float32,
+                              cuda_device), prior,
+        u.float().to(cuda_device), y.float().to(cuda_device))
+    n0 = kern.launches
+    thetas, lls, routes = _pmmh(ll, 4)
+    assert routes == {route} and kern.launches == n0 + 4
+    for th, v in zip(thetas, lls):
+        ref = float(llpt.loglik(_kf_scaled(float(torch.exp(th)),
+                                           torch.float64, "cpu"), u, y,
+                                method="parallel") + prior[0].logpdf(th))
+        assert abs(float(v) - ref) < 1e-4 * abs(ref)
+
+
+def test_pmmh_on_kernel_a(cuda_device):
+    """PMMH proper on the PF (a generator to each ll): every ll on kernel
+    A, each within 1 % of the f64 KF ll at its θ."""
+    u, y = _pmmh_data(200, 6)
+    f, g = convert.linear_callbacks(A, B, C, device=cuda_device)
+
+    def pf_at(th):
+        return convert.particle_filter_from_numpy(
+            100_000, f, g, R1, float(torch.exp(th[0])) * np.asarray(R2), R1,
+            device=cuda_device)
+
+    ll = llpt.log_likelihood_fun(pf_at, [], u.float().to(cuda_device),
+                                 y.float().to(cuda_device))
+    n0 = pf_scan.PF_LOGLIK_SCAN.launches
+    thetas, lls, routes = _pmmh(ll, 4, takes_key=True)
+    assert routes == {"cuda_fused_scan"}
+    assert pf_scan.PF_LOGLIK_SCAN.launches == n0 + 4
+    for th, v in zip(thetas, lls):
+        ref = float(llpt.loglik(_kf_scaled(float(torch.exp(th)),
+                                           torch.float64, "cpu"), u, y))
+        assert abs(float(v) - ref) < 0.01 * abs(ref)
+
+
+def test_affine_ukf_bank_on_kernel_f(cuda_device):
+    """``ukf_bank_loglik`` of an affine UKF at B = 512: one launch of F, each
+    member within 1e-4 of f64 ``kf_bank_loglik`` on the equivalent KF."""
+    Bk, T = 512, 100
+    gen = torch.Generator().manual_seed(7)
+    u = torch.full((T, 1), 0.3, dtype=torch.float64)
+    ys = 0.3 * torch.randn(Bk, T, 2, generator=gen, dtype=torch.float64)
+    f, g = convert.linear_callbacks(A, B, C, device=cuda_device)
+    kf32 = _kf_scaled(1.0, torch.float32, cuda_device)
+    ukf = llpt.make_ukf(f, g, kf32.R1, kf32.R2, nu=1, ny=2)
+    n0 = bank_scan.BANK_LOGLIK.launches
+    ll = llpt.ukf_bank_loglik(ukf, u.float().to(cuda_device),
+                              ys.float().to(cuda_device))
+    assert llpt.last_route("ukf_bank_loglik") == "cuda_bank_kernel"
+    assert bank_scan.BANK_LOGLIK.launches == n0 + 1
+    ref = llpt.kf_bank_loglik(_kf_scaled(1.0, torch.float64, "cpu"), u, ys)
+    assert float(((ll.double().cpu() - ref).abs() / ref.abs()).max()) < 1e-4
