@@ -117,8 +117,10 @@ exits non-zero without its result lines):
    of the routing checks (``_under_batch_trace``, ``_needs_grad``) on
    that filter.
 19. ``sharded_forward_trajectory``, the sharded APF and the sharded FFBS
-   at N = M = 1000, T = 100 against the KF (1 %, 3 %, FFBS_RMS_Z); then
-   the process group is destroyed.
+   at N = M = 1000, T = 100 against the KF (1 %, 3 %, FFBS_RMS_Z);
+   ``sharded_enkf_update`` at N = 1e4 members against the unsharded EnKF
+   step on the same draws (``sharded_enkf_check``); then the process
+   group is destroyed.
    Phases 17-18 print medians of 5 calls and the card's busy share of a
    call (``torch.profiler``).
 20. parameter estimation on the benchmark's model (``paramest_phase``,
@@ -142,9 +144,35 @@ exits non-zero without its result lines):
    and with a state-dependent A (``sol.ok`` all false); ``loglik`` of
    either takes no kernel (sequential, checked against float64 at
    T = 500).
+21. the remaining filters (``slice6_phase``, sizes in ``SLICE6``), float32
+   on the card, each against the float64 CPU run of the same port call:
+   the SqKF on the CV model and the SqEKF on ``A x + 0.01 sin x`` (user
+   Jacobians; the default ``jacfwd`` ones in a ``smooth`` at the same T
+   against them) at T = 1000, ``forward_trajectory``, ``loglik`` and
+   ``smooth`` within 1e-4, the SqKF's ll against the plain KF's; the UIKF on the Darouach example at
+   T = 1000 (d and ll); the EnKF at N = 1e4, T = 1000 on the benchmark's
+   model, its ll within ``ENKF_LL_REL`` of the KF's; the beetle IMM of
+   examples/example_beetle_imm.py at T = 300 (ll and mode probabilities
+   within 1e-4, the autograd gradient of the ll in its 6 parameters
+   within 1e-3); the RBPF at N = 1e5, T = 1000, all-nonlinear (threshold
+   1, a resample a step: a seeded second run bitwise equal, the median
+   of 5 ``loglik`` calls, a step's launches and host syncs),
+   all-linear (threshold 0.1) and the coupled third-order integrator
+   (threshold 1, rows [xn, xl] of width 3 and, one Riccati recursion a
+   particle, [xn, xl, vec(R)] of width 7), each ll within 1 % of its
+   KF, one launch of kernel E's slot stage and one of kernel B a
+   resample and no other kernel, every resample of the first run
+   bitwise equal to B's plain twin on the same K; the MUKF on the
+   tutorial system and the linear oracle (also against the exact KF) at
+   T = 500 with ``MerweParams(alpha=1.0)``, and the tutorial system at
+   the default weights (alpha = 1e-3), which the port warns of in
+   float32: its error is printed, not held; the DAE-UKF on the scalar DAE
+   at T = 150 (against the analytic KF, and the first 100 steps against
+   float64 CPU).  Sizes in ``SLICE6``, cut in T where the step loops
+   are slow; every filter but the RBPF launches no kernel A-K.
 
 Launch counts are reset just before each path's run (phases 4-5, 6, 7,
-8, 9, 10, 11, 12, 13, 14, 15, 17, 18 and 20) and read just after it; every
+8, 9, 10, 11, 12, 13, 14, 15, 17, 18, 20 and 21) and read just after it; every
 kernel of the path must have launched there.  The kernels line (with
 each kernel's bound: the larger of its bytes over 3.35 TB/s and its
 operations over 67 T/s; kernel A's segment mode, which two paths run,
@@ -159,6 +187,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1620,6 +1649,7 @@ def sharded_phases(dev, kernels, stats, launches, smi, kf, kf32, data, model,
         f"{float(ll_ft)} ({t_ft * 1e3:.1f} ms), APF ll {ll_apf} "
         f"({t_apf * 1e3:.1f} ms), FFBS M={N_SMALL} mean RMS {rms:.4f} RTS "
         f"deviations ({t_fb * 1e3:.1f} ms); KF {ll_s}; rel {rels} ({smi})")
+    sharded_enkf_check(dev, mesh, kf32, smi, SLICE6["N_en_sharded"])
     dist.destroy_process_group()
 
 
@@ -2039,6 +2069,507 @@ def paramest_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2,
     log("paramest", f"phase in {time.perf_counter() - t_phase:.1f} s")
 
 
+#: phase 21's sizes.  The script must exit within 1200 s on the card,
+#: the kernels' build included, and aims at half of that.  The RBPF, the
+#: EnKF and the IMM run at the full sizes; the other filters' step loops
+#: are host-bound and cut in T: at T = 5000, 2000, 1000 and 1000
+#: (SqKF/SqEKF, UIKF, MUKF, DAE-UKF at 400) the phase took 360 s on an
+#: H100 and the whole script 1076 s (the SqKF's and SqEKF's three verbs
+#: 84 s, the DAE-UKF 127 ms a step).  The IMM keeps T = 300: on the
+#: first 150 steps of its track the ll's gradient is about 2e5 in
+#: float64 and float32 misses it by 2.3× (PERF.md §7).
+SLICE6 = dict(T_sq=1000, T_ui=1000, N_en=10_000, T_en=1000, T_imm=300,
+              N_rb=100_000, T_rb=1000, T_mu=500, T_dae=150, T_dae_ref=100,
+              N_en_sharded=10_000)
+#: the EnKF's ll within this relative gap of the exact KF's: three times
+#: the largest gap that scripts/torch_enkf_gap.py measured on the CPU in
+#: float32 over five seeds at N = 1e4, T = 1000 (5.68e-4, seed 0)
+ENKF_LL_REL = 1.7e-3
+
+
+def rel_err(got, ref) -> float:
+    """max |got − ref| over max(1, max |ref|): a trajectory's error
+    relative to its scale (a float for a scalar)."""
+    got = torch.as_tensor(got).double().cpu()
+    ref = torch.as_tensor(ref).double().cpu()
+    return float((got - ref).abs().max() / max(1.0, float(ref.abs().max())))
+
+
+def slice6_phase(dev, kernels, stats, launches, smi, sizes=SLICE6):
+    """Phase 21: the remaining filters (see the module doc); adds the
+    RBPF path's launches of kernels B and E's slot stage to ``stats``."""
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from _torch_parity import (beetle_imm, beetle_params, beetle_track,
+                               dae_filter, dae_kf, rb_coupled, rb_linear_kf,
+                               rb_model)
+    from lowlevelparticlefilters_jl_tpu_torch import convert
+    from lowlevelparticlefilters_jl_tpu_torch.filters import rbpf as frb
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import (
+        resample_route, resample_v2)
+    from lowlevelparticlefilters_jl_tpu_torch.ops import resample as ors
+    from lowlevelparticlefilters_jl_tpu_torch.models.sigmapoints import (
+        MerweParams)
+
+    t_phase = time.perf_counter()
+    f32 = dict(dtype=torch.float32, device=dev)
+    f64 = dict(dtype=torch.float64, device="cpu")
+
+    def no_kernel(what):
+        """Reset the counts; the returned check requires none launched."""
+        for k in kernels:
+            k.launches = 0
+
+        def check():
+            torch.cuda.synchronize()
+            got = {k.name: k.launches for k in kernels if k.launches}
+            require(not got, f"{what} launches no kernel A-K, got {got}")
+        return check
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def card(*ts):
+        return [t.float().to(dev) for t in ts]
+
+    # ---- SqKF and SqEKF on the CV model and A x + 0.01 sin x ---------------
+    T = sizes["T_sq"]
+    cv = dict(A=np.array(CV_A, float), C=np.array(CV_C, float),
+              R1=0.1 * np.eye(4), R2=np.eye(2), P0=0.5 * np.eye(4))
+    kf64 = convert.kalman_filter_from_numpy(cv["A"], None, cv["C"], 0,
+                                            cv["R1"], cv["R2"], None,
+                                            cv["P0"], device="cpu")
+    _, _, y = llpt.simulate(kf64, torch.zeros(T, 0, dtype=torch.float64),
+                            torch.Generator().manual_seed(211))
+    u = torch.zeros(T, 0, dtype=torch.float64)
+    uc, yc = card(u, y)
+    ll_kf = float(llpt.loglik(kf64, u, y, method="sequential"))
+
+    def sq_pair(kind, jac=True):
+        if kind == "sqkf":
+            return [convert.sqkf_from_numpy(cv["A"], None, cv["C"], 0,
+                                            cv["R1"], cv["R2"], None,
+                                            cv["P0"], **kw)
+                    for kw in (f32, f64)]
+        out = []
+        for kw in (f32, f64):
+            A_, C_ = (torch.tensor(cv[k], **kw) for k in ("A", "C"))
+            js = dict(Ajac=lambda x, u, p, t, A_=A_: A_ + 0.01 * torch.diag(
+                torch.cos(x)), Cjac=lambda x, u, p, t, C_=C_: C_) \
+                if jac else {}
+            out.append(convert.sqekf_from_numpy(
+                lambda x, u, p, t, A_=A_: A_ @ x + 0.01 * torch.sin(x),
+                lambda x, u, p, t, C_=C_: C_ @ x, cv["R1"], cv["R2"], None,
+                cv["P0"], nu=0, **js, **kw))
+        return out
+
+    for kind in ("sqkf", "sqekf"):
+        fc, fr = sq_pair(kind)
+        done = no_kernel(kind)
+        sol, t_ft = timed(lambda: llpt.forward_trajectory(fc, uc, yc))
+        ll, t_ll = timed(lambda: llpt.loglik(fc, uc, yc))
+        sm, t_sm = timed(lambda: llpt.smooth(fc, uc, yc))
+        done()
+        require(sol.route == "sequential"
+                and llpt.last_route("smooth") == "sequential",
+                f"{kind}: the sequential routes")
+        ref_sm = llpt.smooth(fr, u, y)     # its sol: the same recursion
+        ref = ref_sm.sol
+        lr = abs(float(ref.ll))
+        errs = dict(ll=abs(float(sol.ll) - float(ref.ll)) / lr,
+                    loglik=abs(float(ll) - float(ref.ll)) / lr,
+                    smooth_ll=abs(float(sm.sol.ll) - float(ref.ll)) / lr,
+                    xt=rel_err(sol.xt, ref.xt), xT=rel_err(sm.xT, ref_sm.xT),
+                    RT=rel_err(sm.RT, ref_sm.RT))
+        require(max(errs.values()) < 1e-4, f"{kind} T={T} on the card "
+                f"against float64 CPU within 1e-4: {errs}")
+        vs_kf = ""
+        if kind == "sqkf":
+            rel_kf = abs(float(ll) - ll_kf) / abs(ll_kf)
+            require(rel_kf < 1e-4, f"SqKF ll {float(ll)} against the plain "
+                    f"KF's {ll_kf} (float64 CPU): rel {rel_kf:.3g}")
+            vs_kf = f"; against the plain KF rel {rel_kf:.3g}"
+        log("sqkf", f"{kind} T={T}: ll {float(ll)}, float64 CPU "
+            f"{float(ref.ll)}; errors {errs}; host ms forward_trajectory "
+            f"{t_ft * 1e3:.1f}, loglik {t_ll * 1e3:.1f}, smooth "
+            f"{t_sm * 1e3:.1f}; no kernel launched{vs_kf} ({smi})")
+    # the SqEKF's default Jacobians (torch.func.jacfwd) against the user's
+    fa, _ = sq_pair("sqekf", jac=False)
+    fu, _ = sq_pair("sqekf")
+    done = no_kernel("sqekf jacfwd")
+    (sa, t_a), (su, t_u) = (timed(lambda f=f: llpt.smooth(f, uc, yc))
+                            for f in (fa, fu))
+    done()
+    e_jac = max(rel_err(sa.xT, su.xT), rel_err(sa.RT, su.RT),
+                rel_err(sa.sol.ll, su.sol.ll))
+    require(e_jac < 1e-5, f"SqEKF jacfwd against user Jacobians at T={T}: "
+            f"{e_jac:.3g}")
+    log("sqkf", f"sqekf T={T}: smooth with jacfwd Jacobians {t_a * 1e3:.1f} "
+        f"ms ({t_a / T * 1e3:.2f} ms a step), with the user's "
+        f"{t_u * 1e3:.1f} ms ({t_u / T * 1e3:.2f} ms a step); xT, RT, ll "
+        f"within {e_jac:.3g}; no kernel launched ({smi})")
+
+    # ---- UIKF on the Darouach example ---------------------------------------
+    T = sizes["T_ui"]
+    rng = np.random.default_rng(212)
+    Au = np.array([[0.0, 0.6, 0.075], [0.75, 0.0, 0.0],
+                   [0.0, 0.75, 0.0375]])
+    Bu, Gu = np.array([[1.0], [1.0], [0.0]]), np.array([[0.0], [1.0], [1.0]])
+    Cu = np.array([[1.0, 1.0, 0.0], [0.0, 1.0, 1.0]])
+    R1u, R2u = np.diag([3.0, 6.0, 9.0]), np.diag([12.0, 12.0])
+    d_true = 10.0 * np.sign(np.sin(2 * np.pi * np.arange(T) / 50.0 + 0.1))
+    xu, yu = np.zeros(3), []
+    for k in range(T):
+        yu.append(Cu @ xu + rng.multivariate_normal(np.zeros(2), R2u))
+        xu = Au @ xu + Gu[:, 0] * d_true[k] + rng.multivariate_normal(
+            np.zeros(3), R1u)
+    u = torch.zeros(T, 1, dtype=torch.float64)
+    y = torch.tensor(np.array(yu))
+    uc, yc = card(u, y)
+    ui = [convert.uikf_from_numpy(Au, Bu, Cu, 0, R1u, R2u, Gu, None,
+                                  10.0 * np.eye(3), **kw) for kw in (f32, f64)]
+    done = no_kernel("UIKF")
+    sol, t_ui = timed(lambda: llpt.forward_trajectory(ui[0], uc, yc))
+    for method in ("fused", "parallel"):
+        llpt.loglik(ui[0], uc[:300], yc[:300], method=method)
+        require(llpt.last_route("loglik") == "sequential",
+                f"UIKF loglik method={method} stays sequential")
+    done()
+    ref = llpt.forward_trajectory(ui[1], u, y)
+    e_ui = dict(ll=abs(float(sol.ll) - float(ref.ll)) / abs(float(ref.ll)),
+                d=rel_err(sol.extra, ref.extra), xt=rel_err(sol.xt, ref.xt))
+    require(max(e_ui.values()) < 1e-4, f"UIKF T={T}: d and ll within 1e-4 of "
+            f"float64 CPU: {e_ui}")
+    corr = float(np.corrcoef(sol.extra[6:, 0].double().cpu().numpy(),
+                             d_true[5:-1])[0, 1])
+    require(corr > 0.5, f"UIKF d follows the square wave: corr {corr:.3g}")
+    log("uikf", f"T={T}: ll {float(sol.ll)} float64 CPU {float(ref.ll)}; "
+        f"errors {e_ui}; d(k-1) against the input corr {corr:.3f}; "
+        f"{t_ui * 1e3:.1f} ms; no kernel launched ({smi})")
+
+    # ---- EnKF on the benchmark's model at N = 1e4 ---------------------------
+    N, T = sizes["N_en"], sizes["T_en"]
+    A = [[0.97043, -0.097368], [0.097368, 0.970437]]
+    B, C = [[0.1], [0.0]], [[1.0, 0.0], [0.0, 1.0]]
+    R1, R2 = [[0.01, 0.0], [0.0, 0.01]], [[0.1, 0.0], [0.0, 0.1]]
+    kfb = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, device="cpu")
+    _, u, y = llpt.simulate(kfb, torch.full((T, 1), 0.3,
+                                            dtype=torch.float64),
+                            torch.Generator().manual_seed(210))
+    ll_kf = float(llpt.loglik(kfb, u, y))
+    uc, yc = card(u, y)
+    fe_, ge_ = convert.linear_callbacks(A, B, C, device=dev)
+    enkf = convert.enkf_from_numpy(N, fe_, ge_, R1, R2, None, R1, nu=1, **f32)
+    done = no_kernel("EnKF")
+    ll_en, t_en = timed(lambda: llpt.loglik(
+        enkf, uc, yc, generator=torch.Generator(device=dev).manual_seed(0)))
+    done()
+    rel_en = abs(float(ll_en) - ll_kf) / abs(ll_kf)
+    require(rel_en < ENKF_LL_REL, f"EnKF N={N} T={T}: ll {float(ll_en)} "
+            f"within {ENKF_LL_REL} of the KF's {ll_kf}: rel {rel_en:.3g}")
+    log("enkf", f"N={N} T={T}: ll {float(ll_en)} KF {ll_kf} rel "
+        f"{rel_en:.3g} (bound {ENKF_LL_REL}); one call {t_en * 1e3:.1f} "
+        f"ms; no kernel launched ({smi})")
+
+    # ---- IMM of the beetle example's two augmented-dynamics UKFs ------------
+    T = sizes["T_imm"]
+    _, ys_b = beetle_track(T, seed=213)
+    th = beetle_params()
+    thc = torch.tensor(th, dtype=torch.float32, device=dev,
+                       requires_grad=True)
+    th64 = torch.tensor(th, requires_grad=True)
+    yb = torch.tensor(ys_b)
+    ub = torch.zeros(T, 0, dtype=torch.float64)
+    ubc, ybc = card(ub, yb)
+    imm_c = beetle_imm(thc, yb[0], **f32)
+    done = no_kernel("IMM")
+    sol_c, t_imm = timed(lambda: llpt.forward_trajectory(imm_c, ubc, ybc))
+    (g_c,), t_b = timed(lambda: torch.autograd.grad(sol_c.ll, thc))
+    done()
+    sol_r = llpt.forward_trajectory(beetle_imm(th64.detach(), yb[0]), ub, yb)
+    (g_r,) = torch.autograd.grad(llpt.loglik(beetle_imm(th64, yb[0]), ub,
+                                             yb), th64)
+    e_imm = dict(ll=abs(float(sol_c.ll.detach()) - float(sol_r.ll))
+                 / abs(float(sol_r.ll)),
+                 mu=float((sol_c.extra.detach().double().cpu()
+                           - sol_r.extra).abs().max()),
+                 grad=rel_err(g_c, g_r))
+    require(e_imm["ll"] < 1e-4 and e_imm["mu"] < 1e-4 and e_imm["grad"]
+            < 1e-3, f"IMM T={T}: ll and mode probabilities within 1e-4, "
+            f"gradient within 1e-3 of float64 CPU: {e_imm}")
+    log("imm", f"beetle IMM T={T}: ll {float(sol_c.ll)} float64 CPU "
+        f"{float(sol_r.ll)}; errors {e_imm}; P(search) at T/2 - 10 and "
+        f"T/2 + 25: {float(sol_c.extra[T // 2 - 10, 1]):.3f}, "
+        f"{float(sol_c.extra[T // 2 + 25, 1]):.3f}; forward "
+        f"{t_imm * 1e3:.1f} ms, the ll's backward {t_b * 1e3:.1f} ms; no "
+        f"kernel launched ({smi})")
+
+    # ---- RBPF at N = 1e5: kernel E's slot stage and kernel B a resample -----
+    N, T = sizes["N_rb"], sizes["T_rb"]
+    rng = np.random.default_rng(214)
+    u = torch.tensor(rng.normal(size=(T, 1)))
+    uc = card(u)[0]
+    E, Bk = resample_v2.SYSTEMATIC_SLOTS, resample_route.SYSTEMATIC_GATHER
+    real = frb.resample_gather
+    nres, held, bad = [0], [False], []
+
+    def counted(X, we, *a, r=None, **k):
+        """The RBPF's resample, counted; while ``held``, its rows bitwise
+        against kernel B's plain twin on the same K (E's slot stage,
+        whose launch here is taken back out of the count)."""
+        out = real(X, we, *a, r=r, **k)
+        nres[0] += 1
+        if held[0]:
+            e0 = E.launches
+            K = ors._systematic_slots(we, r, we.shape[-1])
+            E.launches = e0
+            if not torch.equal(
+                    out, resample_route.systematic_gather_plain(X, K)):
+                bad.append(nres[0])
+        return out
+
+    cases = (("nonlinear", 1.0, lambda: rb_model("nonlinear", N, 1.0, **f32),
+              rb_linear_kf()),
+             ("linear", 0.1, lambda: rb_model("linear", N, 0.1, **f32),
+              rb_linear_kf()),
+             ("coupled", 1.0, lambda: rb_coupled(N, 1.0, **f32)[0],
+              rb_coupled(1, 1.0)[1]),
+             ("coupled, per-particle R", 1.0,
+              lambda: rb_coupled(N, 1.0, False, **f32)[0],
+              rb_coupled(1, 1.0)[1]))
+    frb.resample_gather = counted
+    rb_rows = {}
+    try:
+        for which, thr, build, kfr in cases:
+            _, _, y = llpt.simulate(kfr, u, torch.Generator().manual_seed(215))
+            ll_kf = float(llpt.loglik(kfr, u, y))
+            yc = card(y)[0]
+            pf = build()
+            width = pf.nxn + pf.nxl + (0 if pf.single_riccati else
+                                       pf.nxl ** 2)
+            gen = torch.Generator(device=dev)
+            for k in kernels:
+                k.launches = 0
+            nres[0], held[0], bad[:] = 0, True, []
+            sol, t_first = timed(lambda: llpt.forward_trajectory(
+                pf, uc, yc, generator=gen.manual_seed(SEED)))
+            held[0] = False
+            path = {k.name: k.launches for k in kernels if k.launches}
+            n = nres[0]
+            want = {E.name: n, Bk.name: n} if n else {}
+            require(path == want and (thr < 1 or n == T),
+                    f"RBPF {which}: {n} resamples, launches {path}: one of "
+                    f"E's slot stage and one of B a resample, nothing else")
+            require(not bad, f"RBPF {which}: the resampled rows [{width} "
+                    f"float32] bitwise equal to kernel B's plain twin on "
+                    f"the same K, every resample; differ at {bad[:5]}")
+            rel = abs(float(sol.ll) - ll_kf) / abs(ll_kf)
+            require(rel < 0.01, f"RBPF {which} N={N} T={T}: ll "
+                    f"{float(sol.ll)} within 1 % of the KF's {ll_kf}")
+            timing = ""
+            if n:   # the kernel path: reproducible
+                again = llpt.forward_trajectory(
+                    pf, uc, yc, generator=gen.manual_seed(SEED))
+                require(torch.equal(again.x, sol.x) and torch.equal(
+                    again.we, sol.we) and torch.equal(again.ll, sol.ll),
+                    f"RBPF {which}: a second seeded run is bitwise equal")
+                del again
+                timing = (f"; each resample's {width}-wide rows bitwise "
+                          f"equal to B's twin; seeded rerun bitwise equal")
+            if which == "nonlinear":    # its time and launches a step
+                call = lambda: llpt.loglik(  # noqa: E731
+                    pf, uc, yc, generator=gen.manual_seed(SEED))
+                timing += (f"; median of 5 loglik "
+                           f"{host_median_ms(call):.3f} ms; a step: "
+                           f"{step_profile(call, T)}")
+            del sol
+            rb_rows[which] = n
+            log("rbpf", f"{which} N={N} T={T} threshold {thr}: ll rel "
+                f"{rel:.3g} to the KF {ll_kf}; {n} resamples, launches "
+                f"{path}; first forward pass (the twin checks included) "
+                f"{t_first * 1e3:.1f} ms{timing} ({smi})")
+    finally:
+        frb.resample_gather = real
+    for k in (E, Bk):
+        stats[k.name]["launches_by_path"] = dict(
+            stats[k.name].get("launches_by_path", {}),
+            rbpf_forward_trajectory=rb_rows)
+
+    # ---- MUKF: the tutorial system and the linear oracle --------------------
+    T = sizes["T_mu"]
+    rng = np.random.default_rng(216)
+
+    # the van der Merwe weights at alpha = 1: at the default alpha = 1e-3
+    # the centre weight is about -1e6 and float32's UT sums cancel to noise
+    # (filters/mukf.py warns of it); that case runs last, its error printed
+    wp = MerweParams(alpha=1.0)
+
+    def tutorial(kw, wp=wp):
+        Am = torch.tensor([[1.0, 0.0, 0.0], [1.0, 0.3, 0.0],
+                           [0.0, 0.92, -0.3], [0.0, 0.3, 0.92]], **kw)
+        Cm = torch.tensor([[0.0, 0.0, 0.0], [1.0, -1.0, 1.0]], **kw)
+        return convert.mukf_from_numpy(
+            lambda xn, u, p, t: torch.cat([torch.atan(xn),
+                                           xn.new_zeros(3)]),
+            lambda xn, u, p, t: torch.stack(
+                [0.1 * xn[0] ** 2 * torch.sign(xn[0]), 0.0 * xn[0]]),
+            Am, Cm, np.diag([0.01] * 4), 0.1 * np.eye(2), np.zeros(4),
+            np.diag([1.0, 0.01, 0.01, 0.01]), 1, nu=0, weight_params=wp,
+            **kw)
+
+    def tutorial_default(kw):
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            f = tutorial(kw, MerweParams())
+        warned[kw["dtype"]] = any("unscented sums lose" in str(w.message)
+                                  for w in said)
+        return f
+
+    warned = {}
+
+    def oracle(kw):
+        return convert.mukf_from_numpy(
+            lambda xn, u, p, t: torch.stack([0.9 * xn[0], 0.0 * xn[0]]),
+            lambda xn, u, p, t: torch.stack([xn[0], 0.0 * xn[0]]),
+            torch.tensor([[0.2], [0.95]], **kw),
+            torch.tensor([[0.0], [0.5]], **kw), np.diag([0.01, 0.01]),
+            0.1 * np.eye(2), [0.5, 0.3], np.diag([0.1, 0.1]), 1, nu=0,
+            weight_params=wp, **kw)
+
+    um = torch.zeros(T, 0, dtype=torch.float64)
+    ym = torch.tensor(np.stack([0.3 * rng.normal(size=T),
+                                rng.normal(size=T)], 1))
+    kfo = convert.kalman_filter_from_numpy(
+        [[0.9, 0.2], [0.0, 0.95]], np.zeros((2, 0)),
+        [[1.0, 0.0], [0.0, 0.5]], 0, np.diag([0.01, 0.01]),
+        0.1 * np.eye(2), [0.5, 0.3], np.diag([0.1, 0.1]), device="cpu")
+    _, _, yo = llpt.simulate(kfo, um, torch.Generator().manual_seed(217))
+    for name, build, yy in (("tutorial", tutorial, ym),
+                            ("oracle", oracle, yo),
+                            ("tutorial, default weights", tutorial_default,
+                             ym)):
+        done = no_kernel(f"MUKF {name}")
+        sol, t_mu = timed(lambda: llpt.forward_trajectory(
+            build(f32), *card(um, yy)))
+        done()
+        ref = llpt.forward_trajectory(build(f64), um, yy)
+        e = dict(ll=abs(float(sol.ll) - float(ref.ll)) / abs(float(ref.ll)),
+                 xt=rel_err(sol.xt, ref.xt))
+        if name == "oracle":
+            sk = llpt.forward_trajectory(kfo, um, yo)
+            e["kf_ll"] = abs(float(sol.ll) - float(sk.ll)) / abs(float(sk.ll))
+            e["kf_xt"] = rel_err(sol.xt, sk.xt)
+        if name.endswith("default weights"):
+            # known to be wrong in float32: the port warns, float64 not
+            require(warned == {torch.float32: True, torch.float64: False}
+                    and bool(torch.isfinite(sol.xt).all()),
+                    f"MUKF {name}: float32 warns, float64 does not "
+                    f"({warned}); finite xt")
+            verdict = ("float32 warned; error printed, not held: these "
+                       "weights are unusable in float32")
+        else:
+            require(max(e.values()) < 1e-4, f"MUKF {name} T={T}: within "
+                    f"1e-4 of float64 CPU (and of the exact KF): {e}")
+            verdict = "within 1e-4"
+        log("mukf", f"{name} T={T}: ll {float(sol.ll)} float64 CPU "
+            f"{float(ref.ll)}; errors {e} ({verdict}); {t_mu * 1e3:.1f} ms; "
+            f"no kernel launched ({smi})")
+
+    # ---- DAE-UKF on the linear scalar DAE -----------------------------------
+    T, Tr = sizes["T_dae"], sizes["T_dae_ref"]
+    Q, Rd, P0, X0 = 0.05, 0.02, 0.5, 0.3
+    rng = np.random.default_rng(218)
+    xd, yd = X0 + 0.1, []
+    for _ in range(T):
+        xd = 0.8 * xd + 0.1 * 0.7 + np.sqrt(Q) * rng.standard_normal()
+        yd.append(0.7 - xd + np.sqrt(Rd) * rng.standard_normal())
+    yd = torch.tensor(np.array(yd))[:, None]
+
+    def run(f, ys):
+        """Predict, then correct, each step (the DAE-UKF's correct reads the
+        sigma stack its predict leaves): the filtered x, P and the
+        constraint residuals."""
+        uz = ys.new_zeros(1)
+        st, out = f.init(), []
+        for k in range(ys.shape[0]):
+            st = f.predict(st, uz)
+            st, info = f.correct(st, uz, ys[k])
+            out.append(torch.stack([st.x[0], st.R[0, 0], info.resnorm]))
+        return torch.stack(out).double().cpu()
+
+    done = no_kernel("DAE-UKF")
+    got, t_dae = timed(lambda: run(dae_filter(Q, Rd, P0, X0, **f32),
+                                   yd.float().to(dev)))
+    done()
+    xs_kf, Ps_kf = dae_kf(Q, Rd, P0, X0, yd[:, 0].numpy())
+    ref = run(dae_filter(Q, Rd, P0, X0), yd[:Tr])
+    e_dae = dict(kf_x=float(np.abs(got[:, 0].numpy() - xs_kf).max()),
+                 kf_P=float(np.abs(got[:, 1].numpy() - Ps_kf).max()),
+                 cpu_x=rel_err(got[:Tr, 0], ref[:, 0]),
+                 cpu_P=rel_err(got[:Tr, 1], ref[:, 1]),
+                 resnorm=float(got[:, 2].max()))
+    require(e_dae["resnorm"] < 1e-5 and max(
+        v for k, v in e_dae.items() if k != "resnorm") < 1e-4,
+        f"DAE-UKF T={T}: within 1e-4 of the analytic KF, the first {Tr} "
+        f"steps of float64 CPU, residuals below 1e-5: {e_dae}")
+    log("daeukf", f"T={T}: errors {e_dae}; {t_dae * 1e3:.1f} ms "
+        f"({t_dae / T * 1e3:.2f} ms a step); no kernel launched ({smi})")
+    log("slice6", f"phase 21 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def sharded_enkf_check(dev, mesh, kf32, smi, N):
+    """Phase 19's EnKF case: ``sharded_enkf_update`` on ``mesh`` against
+    the unsharded ``correct`` + ``predict`` of the benchmark's model at N
+    members, the same draws replayed through ``filters/enkf.py::_sample``
+    (each rank its block); float32, rtol and atol 1e-5."""
+    from lowlevelparticlefilters_jl_tpu_torch import convert
+    from lowlevelparticlefilters_jl_tpu_torch.filters import enkf as fe
+    from lowlevelparticlefilters_jl_tpu_torch.parallel import sharded as sh
+
+    A_, B_, C_ = kf32.A, kf32.B, kf32.C
+    enkf = convert.enkf_from_numpy(
+        N, lambda x, u, p, t: A_ @ x + B_ @ u, lambda x, u, p, t: C_ @ x,
+        kf32.R1.cpu().numpy(), kf32.R2.cpu().numpy(), None,
+        kf32.R1.cpu().numpy(), nu=1, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    X = torch.randn(N, 2, generator=g, device=dev)
+    draws = [0.3 * torch.randn(N, 2, generator=g, device=dev)
+             for _ in range(2)]
+    u = torch.full((1,), 0.3, device=dev)
+    y = torch.tensor([0.4, -0.2], device=dev)
+    st = fe.EnKFState(X=X, t=0, generator=g)
+    queue = []
+
+    def replay(d, generator, n):
+        lo = 0 if n == N else mesh.rank * n
+        return queue.pop(0)[lo:lo + n]
+
+    real, fe._sample = fe._sample, replay
+    try:
+        queue[:] = draws
+        cs, info = enkf.correct(st, u, y)
+        ps = enkf.predict(cs, u)
+        queue[:] = draws
+        t0 = time.perf_counter()
+        ss, ll = sh.sharded_enkf_update(enkf, sh.shard_enkf_state(st, mesh),
+                                        u, y, mesh=mesh)
+        dt = time.perf_counter() - t0
+    finally:
+        fe._sample = real
+    M = N // mesh.size
+    want = ps.X[mesh.rank * M:(mesh.rank + 1) * M]
+    err = float((ss.X - want).abs().max())
+    require(torch.allclose(ss.X, want, rtol=1e-5, atol=1e-5)
+            and abs(float(ll) - float(info.ll)) <= 1e-5 * abs(float(info.ll))
+            and ss.t == 1, f"sharded EnKF step against the unsharded one: "
+            f"max abs err {err:.3g}, ll {float(ll)} vs {float(info.ll)}")
+    log("sharded enkf", f"N={N} on {mesh.size} rank(s): members within "
+        f"{err:.3g} of the unsharded step, ll {float(ll)} vs "
+        f"{float(info.ll)}; {dt * 1e3:.1f} ms ({smi})")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2217,7 +2748,10 @@ def main():
     # _systematic_slots, E's slot stage on the card).
     gcpu = torch.Generator().manual_seed(SEED)
     worst = 0.0
-    for nx in (2, 4):
+    # rows of 8 and 16 bytes are copied as one vector, other widths word
+    # by word: 3 is the RBPF's [xn, xl], 7 its [xn, xl, vec(R)] with one
+    # Riccati recursion a particle (phase 21)
+    for nx in (2, 3, 4, 7):
         x = torch.randn(N_MAIN, nx, generator=gcpu, device="cpu").to(dev)
         for kind in ("uniform", "skewed"):
             we = (torch.ones(N_MAIN, dtype=torch.float64) if kind == "uniform"
@@ -2270,7 +2804,7 @@ def main():
         **bound(N_MAIN * (4 + 2 * 4 * 2), 0),
         ms_N2p24_1=msB, bound_ms_N2p24_1=bound(NB * (4 + 2 * 4 * 2),
                                                0)["bound_ms"])
-    log("B systematic_gather", f"bitwise at N={N_MAIN}, nx 2 and 4, "
+    log("B systematic_gather", f"bitwise at N={N_MAIN}, nx 2, 3, 4 and 7, "
         f"uniform and U^20 weights; resample_gather at N={NB} (exact False "
         f"and True: _cumsum's K, B) bitwise equal to the plain path; "
         f"{stats['systematic_gather']} ({smi})")
@@ -2712,6 +3246,7 @@ def main():
     sharded_phases(dev, kernels, stats, launches, smi, kf, kf32, data, model,
                    (u6m, y6m, ll6m_ref))
     paramest_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2)
+    slice6_phase(dev, kernels, stats, launches, smi)
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"build included")
 

@@ -9,8 +9,10 @@ filter with the advanced and auxiliary particle filters, the scalar
 noise densities, the smoothers (RTS, MBF, the UKF/EKF backward
 passes, the temporal-parallel and iterated parallel smoothers, FFBS),
 parameter estimation (prediction errors, PMMH, covariance tuning), the
-constant, time-stacked, callable and indexing system matrices, and the
-reference's flat accessor verbs.
+constant, time-stacked, callable and indexing system matrices, the
+reference's flat accessor verbs, and the remaining filters: square-root
+KF and EKF, unknown-input KF, EnKF (also member-sharded), IMM, RBPF,
+marginalized UKF and DAE-UKF.
 On CUDA tensors ``pf.loglik``, ``mean_trajectory(pf, ...)`` and
 ``pf_stats_fused`` run the whole recursion as one hand-written kernel
 (kernels/pf_scan.py), the ``exact_resample`` resampling runs kernel E
@@ -20,8 +22,9 @@ trajectory runs the associative scan kernel (kernels/assoc_scan.py),
 UKF, EKF and ``KalmanFilter.loglik_fused`` run the whole-scan kernels
 G, H and I (kernels/ukf_scan.py), with the user callbacks compiled in,
 and the FFBS particle smoother's backward pass runs kernel J
-(kernels/ffbs.py); the CUDA sources in ``csrc/`` are built with ``nvcc``
-at first use.
+(kernels/ffbs.py); the RBPF resamples through kernel E's slot stage and
+kernel B; the CUDA sources in ``csrc/`` are built with ``nvcc`` at first
+use.
 
 Quick start::
 
@@ -82,6 +85,17 @@ from .filters.particle import (
 )
 from .filters.ukf import UnscentedKalmanFilter, make_ukf
 from .filters.ekf import ExtendedKalmanFilter, make_ekf, make_iekf
+from .filters.sqkf import (SqKalmanFilter, SqExtendedKalmanFilter, SqKFState,
+                           make_sqekf)
+from .filters.uikf import UIKalmanFilter, UIKFInfo
+from .filters.enkf import (EnsembleKalmanFilter, EnKFState, ensemble_mean,
+                           ensemble_cov)
+from .filters.imm import (InteractingMultipleModels, IMM, IMMState, IMMInfo,
+                          interact, combine)
+from .filters.rbpf import RBPF, RBState, RBMeasurementModel, RBParticle
+from .filters.mukf import MUKF, partition_cov, cond_linear_params
+from .filters.daeukf import (DAEUnscentedKalmanFilter, DAEUKFState,
+                             DAEUKFInfo, newton_constraint_solver)
 from .models.measurement_models import (
     AbstractMeasurementModel,
     LinearMeasurementModel,

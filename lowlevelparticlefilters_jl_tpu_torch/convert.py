@@ -28,6 +28,8 @@ from .utils.solutions import KalmanFilteringSolution, ParticleFilteringSolution
 def _t(a, dtype, device) -> Optional[torch.Tensor]:
     if a is None:
         return None
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype=dtype, device=device)
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
@@ -174,6 +176,162 @@ def ekf_from_numpy(dynamics: Callable, measurement: Callable, R1, R2,
     return make_ekf(dynamics, measurement, _t(R1, dtype, device),
                     _t(R2, dtype, device), d0, nu=nu, Ts=Ts, alpha=alpha,
                     Ajac=Ajac, Cjac=Cjac)
+
+
+def sqkf_from_numpy(A, B, C, D, R1, R2, d0_mean=None, d0_cov=None, *,
+                    Ts: float = 1.0, alpha: float = 1.0,
+                    dtype=torch.float64, device=None):
+    """A :class:`~.filters.sqkf.SqKalmanFilter` from arrays: R1 and R2
+    are covariances (factored by the filter), d0 defaults to N(0, R1)."""
+    from .filters.sqkf import SqKalmanFilter
+
+    device = default_device(device)
+    d0 = None if d0_cov is None else _density(d0_mean, d0_cov, dtype, device)
+    if D is not None and not callable(D) and np.ndim(D) == 0 \
+            and float(D) == 0.0:
+        D = None
+    return SqKalmanFilter(*(_mat(M, dtype, device)
+                            for M in (A, B, C, D, R1, R2)), d0=d0, Ts=Ts,
+                          alpha=alpha)
+
+
+def sqekf_from_numpy(dynamics: Callable, measurement: Callable, R1, R2,
+                     d0_mean=None, d0_cov=None, *, Ts: float = 1.0,
+                     nu: int = -1, alpha: float = 1.0, Ajac=None, Cjac=None,
+                     dtype=torch.float64, device=None):
+    """A square-root EKF (:func:`~.filters.sqkf.make_sqekf`) from the
+    covariance arrays around the torch callbacks."""
+    from .filters.sqkf import make_sqekf
+
+    device = default_device(device)
+    d0 = None if d0_cov is None else _density(d0_mean, d0_cov, dtype, device)
+    return make_sqekf(dynamics, measurement, _t(R1, dtype, device),
+                      _t(R2, dtype, device), d0, Cjac=Cjac, Ajac=Ajac,
+                      nu=nu, Ts=Ts, alpha=alpha)
+
+
+def uikf_from_numpy(A, B, C, D, R1, R2, G, d0_mean=None, d0_cov=None, *,
+                    nd: int = -1, Ts: float = 1.0, dtype=torch.float64,
+                    device=None):
+    """A :class:`~.filters.uikf.UIKalmanFilter`: the inner KF from the
+    arrays as :func:`kalman_filter_from_numpy` builds it, and the
+    unknown-input matrix ``G`` (an array or a torch callable, then with
+    ``nd``)."""
+    from .filters.uikf import UIKalmanFilter
+
+    device = default_device(device)
+    kf = kalman_filter_from_numpy(A, B, C, D, R1, R2, d0_mean, d0_cov, Ts=Ts,
+                                  dtype=dtype, device=device)
+    return UIKalmanFilter(kf=kf, G=_mat(G, dtype, device), nd=nd)
+
+
+def enkf_from_numpy(N: int, dynamics: Callable, measurement: Callable, R1,
+                    R2, d0_mean=None, d0_cov=None, *, inflation: float = 1.0,
+                    Ts: float = 1.0, nu: int = -1, dtype=torch.float64,
+                    device=None):
+    """An :class:`~.filters.enkf.EnsembleKalmanFilter` of N members from
+    the covariance arrays around the torch callbacks; d0 defaults to
+    N(0, R1)."""
+    from .filters.enkf import EnsembleKalmanFilter
+
+    device = default_device(device)
+    return EnsembleKalmanFilter(
+        dynamics=dynamics, measurement=measurement, R1=_t(R1, dtype, device),
+        R2=_t(R2, dtype, device),
+        d0=_density(d0_mean, R1 if d0_cov is None else d0_cov, dtype,
+                    device), N=N, inflation=inflation, Ts=Ts, nu=nu)
+
+
+def imm_from_numpy(models, P, mu0, *, interact: bool = True, p=None,
+                   dtype=torch.float64, device=None):
+    """An :class:`~.filters.imm.InteractingMultipleModels` over the port's
+    mode filters (built by the constructors here) with the transition
+    matrix ``P`` and the initial mode probabilities ``mu0`` from
+    arrays."""
+    from .filters.imm import InteractingMultipleModels
+
+    device = default_device(device)
+    return InteractingMultipleModels(
+        models=tuple(models), P=_t(P, dtype, device),
+        mu0=_t(mu0, dtype, device), p=p, interact=interact)
+
+
+def rbpf_from_numpy(N: int, kf: KalmanFilter, dynamics: Callable,
+                    measurement: Callable, R2, R1n, d0n_cov, *,
+                    d0n_mean=None, An=None, ny: int = -1,
+                    resample_threshold: float = 0.1,
+                    resampling_strategy: str = "systematic",
+                    augmented_dynamics: bool = False,
+                    single_riccati: Optional[bool] = None, Ts: float = 1.0,
+                    nu: int = -1, dtype=torch.float32, device=None):
+    """An :class:`~.filters.rbpf.RBPF` around the linear substate's KF
+    (built by :func:`kalman_filter_from_numpy`) and the torch callbacks
+    ``dynamics(xn, u, p, t)`` and ``measurement(xn, u, p, t)``: R2, R1n,
+    the nonlinear state's initial density and ``An`` (an array, a torch
+    callable or None) from arrays."""
+    from .filters.rbpf import RBMeasurementModel, RBPF
+
+    device = default_device(device)
+    R2 = _t(R2, dtype, device)
+    return RBPF(
+        N=N, kf=kf, dynamics=dynamics,
+        nl_measurement_model=RBMeasurementModel(
+            measurement=measurement, R2=R2,
+            ny=R2.shape[-1] if ny < 0 else ny),
+        R1n=_t(R1n, dtype, device),
+        d0n=_density(d0n_mean, d0n_cov, dtype, device),
+        An=None if An is None else _mat(An, dtype, device),
+        resample_threshold=resample_threshold,
+        resampling_strategy=resampling_strategy, Ts=Ts, nu=nu,
+        augmented_dynamics=augmented_dynamics, single_riccati=single_riccati)
+
+
+def mukf_from_numpy(dynamics: Callable, measurement: Callable, A, Cl, R1,
+                    R2, d0_mean, d0_cov, nxn: int, *, n_inds=None,
+                    l_inds=None, weight_params=None, Ts: float = 1.0,
+                    nu: int = -1, dtype=torch.float64, device=None):
+    """A :class:`~.filters.mukf.MUKF` from the arrays ``A`` ([An; Al]),
+    ``Cl``, R1, R2 and the full state's initial density (``A``/``Cl`` may
+    be torch callables of ``(xn, u, p, t)``) around the torch callbacks
+    ``dynamics(xn, u, p, t)`` and ``measurement(xn, u, p, t)``."""
+    from .filters.mukf import MUKF
+    from .filters.rbpf import RBMeasurementModel
+    from .models.sigmapoints import MerweParams
+
+    device = default_device(device)
+    R2 = _t(R2, dtype, device)
+    return MUKF(
+        dynamics=dynamics,
+        nl_measurement_model=RBMeasurementModel(measurement=measurement,
+                                                R2=R2, ny=R2.shape[-1]),
+        A=_mat(A, dtype, device), Cl=_mat(Cl, dtype, device),
+        R1=_t(R1, dtype, device),
+        d0=_density(d0_mean, d0_cov, dtype, device), nxn=nxn, Ts=Ts, nu=nu,
+        weight_params=weight_params or MerweParams(), n_inds=n_inds,
+        l_inds=l_inds)
+
+
+def daeukf_from_numpy(dynamics: Callable, measurement: Callable,
+                      residual: Callable, get_x_z: Callable,
+                      build_xz: Callable, R1, R2, d0_mean, d0_cov, xz0, *,
+                      weight_params=None, constraint_solver=None,
+                      Ts: float = 1.0, nu: int = -1, dtype=torch.float64,
+                      device=None):
+    """A :class:`~.filters.daeukf.DAEUnscentedKalmanFilter` from R1, R2,
+    the differential state's initial density and the initial descriptor
+    ``xz0`` around the torch callbacks."""
+    from .filters.daeukf import DAEUnscentedKalmanFilter
+    from .models.sigmapoints import TrivialParams
+
+    device = default_device(device)
+    return DAEUnscentedKalmanFilter(
+        dynamics=dynamics, measurement=measurement, residual=residual,
+        get_x_z=get_x_z, build_xz=build_xz, R1=_t(R1, dtype, device),
+        R2=_t(R2, dtype, device),
+        d0=_density(d0_mean, d0_cov, dtype, device),
+        xz0=_t(xz0, dtype, device), Ts=Ts, nu=nu,
+        weight_params=weight_params or TrivialParams(),
+        constraint_solver=constraint_solver)
 
 
 def linear_callbacks(A, B, C, dtype=torch.float32, device=None):

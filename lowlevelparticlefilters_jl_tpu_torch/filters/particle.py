@@ -104,11 +104,21 @@ class _ParticleCommon(AbstractParticleFilter):
             return _uniform_weights(self.N, state.w)
         return state.w, state.we
 
-    def forward_trajectory(self, u, y, p=None, *,
+    def forward_trajectory(self, u, y, p=None, *, pre_correct_cb=None,
+                           post_correct_cb=None, pre_predict_cb=None,
+                           post_predict_cb=None,
                            generator: Optional[torch.Generator] = None,
                            state0: PFState = None, method: str = "auto"):
         """Batch filtering, correct → save → predict each step; returns a
-        :class:`ParticleFilteringSolution` with the whole cloud history."""
+        :class:`ParticleFilteringSolution` with the whole cloud history.
+
+        The per-step callbacks, in the JAX package's order:
+        ``pre_correct_cb(f, state, u, y, p, t)``;
+        ``post_correct_cb(f, state, info, u, y, p, t)``, whose result
+        replaces the state when it is not None (before it is saved);
+        ``pre_predict_cb(f, state, u, y, p, t, info)``;
+        ``post_predict_cb(f, state, u, y, p, t)``, whose result replaces
+        the predicted state when it is not None."""
         from ..routing import _check_method, _record
 
         _check_method(method)
@@ -119,12 +129,25 @@ class _ParticleCommon(AbstractParticleFilter):
         lls, xs, ws, wes = [], [], [], []
         for k in range(T):
             tk = k * self.Ts
-            state, info = self.correct(state, u_seq[k], y[k], p, tk)
+            uk, yk = u_seq[k], y[k]
+            if pre_correct_cb:
+                pre_correct_cb(self, state, uk, yk, p, tk)
+            state, info = self.correct(state, uk, yk, p, tk)
+            if post_correct_cb:
+                out = post_correct_cb(self, state, info, uk, yk, p, tk)
+                if out is not None:
+                    state = out
             lls.append(info.ll)
             xs.append(state.x)
             ws.append(state.w)
             wes.append(state.we)
+            if pre_predict_cb:
+                pre_predict_cb(self, state, uk, yk, p, tk, info)
             state = self._advance(state, u_seq, y, k, p, tk)
+            if post_predict_cb:
+                out = post_predict_cb(self, state, uk, yk, p, tk)
+                if out is not None:
+                    state = out
         _record("forward_trajectory", "sequential")
         return ParticleFilteringSolution(
             u=u_seq, y=y, x=torch.stack(xs), w=torch.stack(ws),
@@ -455,6 +478,15 @@ class AuxiliaryParticleFilter(_ParticleCommon):
         if k + 1 == y.shape[0]:
             return state
         return self.predict(state, u_seq[k], y[k + 1], p, tk)
+
+    def forward_trajectory(self, u, y, p=None, *,
+                           generator: Optional[torch.Generator] = None,
+                           state0: PFState = None, method: str = "auto",
+                           **_ignored):
+        """The shared batch filtering with the lookahead; the per-step
+        callbacks are accepted and ignored, as in the JAX package."""
+        return super().forward_trajectory(u, y, p, generator=generator,
+                                          state0=state0, method=method)
 
     def loglik(self, u, y, p=None, *,
                generator: Optional[torch.Generator] = None,

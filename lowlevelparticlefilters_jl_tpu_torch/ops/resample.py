@@ -153,21 +153,24 @@ def resample(we: torch.Tensor, generator=None, M: Optional[int] = None,
 
 def resample_gather(x: torch.Tensor, we: torch.Tensor, generator=None,
                     strategy: ResamplingStrategy = "systematic",
-                    exact: bool = False) -> torch.Tensor:
+                    exact: bool = False, *, r=None) -> torch.Tensor:
     """``x[resample(we)]`` as the particle filters resample: systematic
     through kernel B's gather, or with ``exact`` through kernel E, which
     goes from the weights to the index vector ``j`` and the rows ``x[j]``
     in one launch (the JAX package's ``exact_resample`` branch); the two
     draw the same r and compute the same K, so their results are bitwise
-    equal.  Other strategies index, and so
-    does systematic resampling of particles that autograd records
+    equal.  A systematic resample takes the offset ``r`` where it is
+    given, else draws it from ``generator``.  Other strategies index, and
+    so does systematic resampling of particles that autograd records
     (``routing._needs_grad``): the kernels are forward-only."""
     from ..routing import _needs_grad
 
-    if strategy != "systematic" or _needs_grad(x):
+    if strategy != "systematic":
         return x[resample(we, generator, x.shape[0], strategy=strategy)]
+    if _needs_grad(x):
+        return x[resample_systematic(we, generator, x.shape[0], r=r)]
     if exact:
         from ..kernels.resample_v2 import fused_systematic_gather
 
-        return fused_systematic_gather(x, we, generator)[0]
-    return resample_systematic_gather(x, we, generator)
+        return fused_systematic_gather(x, we, generator, r=r)[0]
+    return resample_systematic_gather(x, we, generator, r=r)

@@ -39,8 +39,8 @@ The verbs:
   whose local level is kernel K's whole-element mode
   (``kernels/assoc_scan.filter_scan_full``).
 
-The sharded EnKF (``shard_enkf_state``, ``sharded_enkf_update``) waits for
-the port of ``filters/enkf.py``.
+- the member-sharded stochastic EnKF: :func:`shard_enkf_state` and
+  :func:`sharded_enkf_update`, whose ensemble moments are all-reduced.
 """
 from __future__ import annotations
 
@@ -408,6 +408,74 @@ def sharded_forward_trajectory(pf, u, y, generator, mesh: Mesh, p=None):
         wes.append(we)
     return (torch.stack(xs), torch.stack(ws), torch.stack(wes),
             torch.stack(lls).sum())
+
+
+# ---------------------------------------------------------------------------
+# Member-sharded EnKF: the ensemble axis distributes like particles
+# ---------------------------------------------------------------------------
+
+
+def shard_enkf_state(state, mesh: Mesh):
+    """This rank's block of a global ``EnKFState`` on the mesh's device:
+    the members sliced on their leading axis; ``t`` and the generator
+    (seeded alike on every rank) stay as they are."""
+    N = state.X.shape[0]
+    if N % mesh.size:
+        raise ValueError(f"N={N} is not divisible by {mesh.size} ranks")
+    M = N // mesh.size
+    return state.replace(X=state.X[mesh.rank * M:(mesh.rank + 1) * M].to(
+        mesh.device))
+
+
+def sharded_enkf_update(enkf, state, u, y, p=None, t=None,
+                        mesh: Mesh = None):
+    """One stochastic-EnKF correct + predict step with the members
+    sharded over ``mesh``: ``state`` is this rank's block
+    (:func:`shard_enkf_state`).  The members' propagation and measurement
+    are local; the ensemble means and the anomaly products ``XaᵀYa`` /
+    ``YaᵀYa`` are all-reduced sums ([nx, ny]-sized, whatever N).  The
+    perturbed observations and the process noise of a rank come from its
+    own generator (``_rank_generator``, the JAX package's ``fold_in``),
+    drawn through ``filters/enkf.py::_sample``.  Returns ``(state, ll)``
+    with the replicated ll."""
+    from ..filters import enkf as fe
+    from ..ops.matrices import resolve_mat
+    from ..ops.mvnormal import mvnormal_logpdf
+
+    if mesh is None:
+        raise ValueError("sharded_enkf_update needs a mesh")
+    _on_mesh(mesh, state.X, y)
+    p = enkf.p if p is None else p
+    tk = state.t * enkf.Ts if t is None else t
+    N = enkf.N
+    X = state.X
+    if u is None:
+        u = X.new_zeros(0)
+    vm = torch.func.vmap
+    xbar = _psum(X.sum(0), mesh) / N
+    R2 = resolve_mat(enkf.R2, xbar, u, p, tk, Ts=enkf.Ts)
+    R1 = resolve_mat(enkf.R1, xbar, u, p, tk, Ts=enkf.Ts)
+    noise = _rank_generator(state.generator, mesh, X.device)
+
+    # correct: the moments summed over every rank's members
+    h = enkf.measurement
+    Y = vm(lambda xi: h(xi, u, p, tk))(X)
+    ybar = _psum(Y.sum(0), mesh) / N
+    Xa, Ya = X - xbar, Y - ybar
+    S = symmetrize(_psum(Ya.mT @ Ya, mesh) / (N - 1)) + R2
+    Schol = chol_lower(S)
+    K = rdiv_chol(_psum(Xa.mT @ Ya, mesh) / (N - 1), Schol)
+    eps = fe._sample(as_mvnormal(R2), noise, X.shape[0])
+    Xn = X + (y + eps - Y) @ K.mT
+
+    # predict
+    f = enkf.dynamics
+    Xp = vm(lambda xi: f(xi, u, p, tk))(Xn)
+    Xp = Xp + fe._sample(as_mvnormal(R1), noise, X.shape[0])
+    m = _psum(Xp.sum(0), mesh) / N
+    Xp = m + enkf.inflation * (Xp - m)
+    ll = mvnormal_logpdf(y - ybar, torch.zeros_like(y), Schol)
+    return state.replace(X=Xp, t=state.t + 1), ll
 
 
 def sharded_apf_update(apf, state: PFState, u, y, y1=None, p=None, t=None,

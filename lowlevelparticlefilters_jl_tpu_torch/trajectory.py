@@ -35,13 +35,13 @@ def forward_trajectory(f, u, y, p=None, *, pre_correct_cb=None,
     (``parallel/temporal.py``, kernel K on CUDA float32) or a whole-scan
     kernel (kernels/ukf_scan.py) when ``routing`` admits it — see
     ``routing.py`` for ``method=`` — else the sequential recursion.
-    Particle filters return a
-    ``ParticleFilteringSolution`` from their own method.
+    A filter with a ``forward_trajectory`` of its own (the particle
+    filters, the EnKF, IMM, RBPF and UIKF) runs it, and is handed the
+    callbacks, as in the JAX package.
     ``last_route("forward_trajectory")`` names the path taken.
 
-    The four per-step callbacks (Kalman-family filters; a call with any of
-    them, or with a measurement model ``mm=``, takes the sequential
-    route):
+    The four per-step callbacks (a call with any of them, or with a
+    measurement model ``mm=``, takes the sequential route):
 
     - ``pre_correct_cb(f, state, u, y, p, t)`` -> an R2 for this step, or
       None;
@@ -59,10 +59,7 @@ def forward_trajectory(f, u, y, p=None, *, pre_correct_cb=None,
                post_predict_cb=post_predict_cb)
     has_cb = any(cb is not None for cb in cbs.values())
     if hasattr(f, "forward_trajectory"):
-        if has_cb:
-            raise TypeError("the per-step callbacks are taken by the "
-                            "Kalman-family filters only")
-        return f.forward_trajectory(u, y, p, **kwargs)
+        return f.forward_trajectory(u, y, p, **cbs, **kwargs)
     if not has_cb and kwargs.get("mm") is None:
         sol = route_forward_trajectory(f, u, y, p, method)
         if sol is not None:
@@ -138,9 +135,19 @@ def loglik(f, u, y, p=None, method: str = "auto", **kwargs):
     ``routing.route_pf_loglik`` (kernel A on CUDA tensors); Kalman-family
     filters through ``routing.route_kalman_loglik`` (the temporal-parallel
     path or a whole-scan kernel, as for :func:`forward_trajectory`) or the
-    sequential recursion."""
+    sequential recursion.  Any other filter with a ``loglik`` of its own
+    (the EnKF, IMM, RBPF) is called without ``method`` and records
+    ``"sequential"``, as the JAX package does."""
     if hasattr(f, "loglik"):
-        return f.loglik(u, y, p, method=method, **kwargs)
+        from .filters.particle import _ParticleCommon
+
+        if isinstance(f, _ParticleCommon):
+            return f.loglik(u, y, p, method=method, **kwargs)
+        from .routing import _check_method, _record
+
+        _check_method(method)
+        _record("loglik", "sequential")
+        return f.loglik(u, y, p, **kwargs)
     from .routing import route_kalman_loglik
 
     ll = route_kalman_loglik(f, u, y, p, method)

@@ -1689,3 +1689,52 @@ def test_affine_ukf_bank_on_kernel_f(cuda_device):
     assert bank_scan.BANK_LOGLIK.launches == n0 + 1
     ref = llpt.kf_bank_loglik(_kf_scaled(1.0, torch.float64, "cpu"), u, ys)
     assert float(((ll.double().cpu() - ref).abs() / ref.abs()).max()) < 1e-4
+
+
+@pytest.mark.parametrize("per_particle", [False, True],
+                         ids=["single_riccati", "per_particle"])
+def test_rbpf_resamples_through_e_and_b_on_card(cuda_device, monkeypatch,
+                                                per_particle):
+    """The RBPF's systematic resample of ``[xn, xl, (R)]`` is one launch
+    of kernel E's slot stage and one of kernel B a resample (threshold 1:
+    every step), and the run matches the CPU run of the same filter in
+    float64 on the same draws (replayed through ``filters/rbpf.py::
+    _sample``), where both kernels' twins run; rtol 1e-9."""
+    from lowlevelparticlefilters_jl_tpu_torch.filters import rbpf as frb
+
+    N, T = 2048, 20
+
+    def rbpf(dev):
+        kf = convert.kalman_filter_from_numpy(
+            [[0.95]], np.zeros((1, 0)), [[1.0]], 0, [[0.01]], [[0.1]],
+            [1.0], [[1.0]], device=dev)
+        return convert.rbpf_from_numpy(
+            N, kf, lambda xn, u, p, t: 0.9 * xn + 0.1 * torch.sin(xn),
+            lambda xn, u, p, t: 0.5 * torch.sin(xn), [[0.1]], [[0.01]],
+            [[0.01]], d0n_mean=[1.0], An=[[0.5]], nu=0,
+            resample_threshold=1.0, single_riccati=not per_particle,
+            dtype=torch.float64, device=dev)
+
+    rng = np.random.default_rng(3)
+    y = torch.tensor(1.0 + 0.3 * rng.normal(size=(T, 1)))
+    draws = [1.0 + 0.1 * rng.normal(size=(N, 1))]
+    for _ in range(T):
+        draws += [rng.uniform(), 0.1 * rng.normal(size=(N, 1))]
+
+    def run(dev):
+        q = list(draws)
+        monkeypatch.setattr(frb, "_sample", lambda *a, **k: torch.tensor(
+            q.pop(0), dtype=torch.float64, device=dev))
+        return llpt.forward_trajectory(rbpf(dev), torch.zeros(T, 0,
+                                                               device=dev),
+                                       y.to(dev), generator=None)
+
+    E, B_ = resample_v2.SYSTEMATIC_SLOTS, resample_route.SYSTEMATIC_GATHER
+    e0, b0 = E.launches, B_.launches
+    got = run(cuda_device)
+    assert E.launches - e0 == T and B_.launches - b0 == T
+    want = run("cpu")
+    for f in ("x", "we", "ll"):
+        np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                   getattr(want, f).numpy(), rtol=1e-9,
+                                   atol=1e-12, err_msg=f)

@@ -21,6 +21,9 @@ functions run here on meshes of 4 and 1 of the virtual CPU devices
   equal on all ranks.
 - Placement: ``shard_bank`` over ``bank_mesh``, and a verb refusing data
   off the mesh's device.
+- The member-sharded EnKF step (``sharded_enkf_update``) against the
+  port's unsharded correct + predict on the same replayed draws
+  (rtol 1e-10), over four ranks and one.
 
 Run as a script, this file prints the 32- and 8-step segment readings
 of the fused sharded PF at chip_smoke.py's size (:func:`_segment_readings`).
@@ -79,6 +82,15 @@ def _inputs():
                                      jnp.float64))
         c["resample"][key] = dict(x=rng.normal(size=(NP, 2)), w=np.log(we),
                                   we=we, threshold=th, r=r, key=jkey)
+    # the EnKF step: 64 members, their draws of the perturbed
+    # observations (R2) and of the process noise (R1)
+    NE = 64
+    c["enkf"] = dict(
+        A=A, B=B, C=C, R1=R1, R2=R2, P0=0.5 * np.eye(2), inflation=1.05,
+        X=rng.normal(size=(NE, 2)), u=np.array([0.3]),
+        y=np.array([0.4, -0.2]),
+        eps=rng.multivariate_normal(np.zeros(2), R2, size=NE),
+        w=rng.multivariate_normal(np.zeros(2), R1, size=NE))
     return c
 
 
@@ -229,6 +241,20 @@ def test_resamplers_match_jax(want, ranks, world):
         want_ring = int(key == "skew" and world > 1)
         assert {ranks[r][world][f"ring_{key}"] for r in range(world)} == {
             want_ring}, key
+
+
+@pytest.mark.parametrize("world", [WORLD, 1])
+def test_sharded_enkf_step_matches_unsharded(ranks, world):
+    """``sharded_enkf_update``: the ranks' member blocks, in rank order,
+    equal the unsharded correct + predict on the same draws, and the ll
+    comes back equal on every rank and equal to the unsharded one
+    (rtol 1e-10: the moments are summed in another order)."""
+    Xs, ll, X1, ll1, t = ranks[0][world]["enkf"]
+    np.testing.assert_allclose(_cat(ranks, world, "enkf", 0), X1, **EXACT)
+    for r in range(world):
+        got = ranks[r][world]["enkf"]
+        assert got[1] == ll and got[4] == t == 1, r
+    np.testing.assert_allclose(ll, ll1, **EXACT)
 
 
 def test_sharded_pf_lls_near_kf(want, ranks):

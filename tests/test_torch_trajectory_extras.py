@@ -100,14 +100,20 @@ def test_forward_trajectory_callbacks_match_jax():
     for a, b in zip(st.extra, sj.extra):
         np.testing.assert_allclose(np_of(a), np_of(b), **RTOL)
     assert bool(st.ok.all())
+    # a filter with a forward_trajectory of its own is handed the
+    # callbacks (the PF runs them, in the JAX package's order)
     pf = llpt.ParticleFilter(N=10, dynamics=lambda x, u, p, t: x,
                              measurement=lambda x, u, p, t: x,
                              dynamics_density=kt.R1,
                              measurement_density=kt.R2,
                              initial_density=kt.R1)
-    with pytest.raises(TypeError):
-        llpt.forward_trajectory(pf, torch.tensor(u), torch.tensor(y),
-                                **_callbacks(torch))
+    calls = []
+    cbs = {name: (lambda name: lambda *a: calls.append(name))(name)
+           for name in _callbacks(torch)}
+    llpt.forward_trajectory(pf, torch.tensor(u), torch.tensor(y),
+                            generator=torch.Generator().manual_seed(0), **cbs)
+    assert calls == ["pre_correct_cb", "post_correct_cb", "pre_predict_cb",
+                     "post_predict_cb"] * T
 
 
 def test_simulate_forms():
@@ -182,3 +188,127 @@ def test_compat_verbs_match_jax():
             np_of(llpt.weighted_mean(pt.x, pt.we)))
     yt = llpt.sample_measurement(kt, None, torch.tensor(D0M), noise=False)
     np.testing.assert_allclose(np_of(yt), C @ D0M, **RTOL)
+
+
+# ---- the verbs hand callbacks and method= as the JAX package does ---------
+
+
+NPF, TPF = 64, 20
+
+
+def _pf_pair():
+    """The linear model's bootstrap PF in both packages, without process
+    noise (so the only draw of a step is the resampling offset r; every
+    step resamples, as the JAX package splits its key every step), and a
+    shared initial state: ``(pj, pt, sj, st)``."""
+    Aj, Bj, Cj = (jnp.asarray(M) for M in (A, B, C))
+    pj = llpf.ParticleFilter(
+        N=NPF, dynamics=lambda x, u, p, t: Aj @ x + Bj @ u,
+        measurement=lambda x, u, p, t: Cj @ x, dynamics_density=None,
+        measurement_density=jnp.asarray(R2),
+        initial_density=jnp.asarray(D0C), resample_threshold=1.0)
+    fs, gs = convert.linear_callbacks(A, B, C, dtype=torch.float64,
+                                      device="cpu")
+    pt = convert.particle_filter_from_numpy(
+        NPF, fs, gs, R1, R2, D0C, resample_threshold=1.0,
+        dtype=torch.float64, device="cpu").replace(dynamics_density=None)
+    from lowlevelparticlefilters_jl_tpu.filters.particle import (
+        PFState as JState)
+
+    x0 = np.random.default_rng(7).normal(size=(NPF, 2))
+    w0 = np.full(NPF, -np.log(NPF))
+    sj = JState(x=jnp.asarray(x0), w=jnp.asarray(w0),
+                we=jnp.asarray(np.exp(w0)), t=jnp.asarray(0, jnp.int32),
+                key=jax.random.PRNGKey(5))
+    st = llpt.PFState(x=torch.tensor(x0), w=torch.tensor(w0),
+                      we=torch.tensor(np.exp(w0)), t=0,
+                      generator=torch.Generator().manual_seed(0))
+    return pj, pt, sj, st
+
+
+def _jax_offsets(key, n):
+    """The resampling offsets r the JAX PF draws over n steps without
+    process noise: each step splits its key and draws r from the split."""
+    rs = []
+    for _ in range(n):
+        key, kr = jax.random.split(key)
+        rs.append(float(jax.random.uniform(kr, (), jnp.float64)))
+    return rs
+
+
+def test_pf_forward_trajectory_runs_callbacks_as_jax(monkeypatch):
+    """``forward_trajectory(pf, ..., post_correct_cb=...)`` hands the
+    callbacks to the PF's own ``forward_trajectory``: a post-correct
+    callback that records ``state.we`` and tempers the weights, a
+    post-predict one that nudges the particles, and the two pre-callbacks
+    (results ignored), against the JAX package at N = 64, T = 20 in
+    float64 with the JAX draws of r fed to the port; rtol 1e-10."""
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import resample_v2
+    from lowlevelparticlefilters_jl_tpu_torch.ops import resample as trs
+
+    pj, pt, sj, st = _pf_pair()
+    rs = iter(_jax_offsets(sj.key, TPF))
+    for mod in (trs, resample_v2):
+        monkeypatch.setattr(mod, "_uniform", lambda *a: torch.tensor(
+            next(rs), dtype=torch.float64))
+    u, y, _ = _data(8)
+    u, y = u[:TPF], y[:TPF]
+
+    def cbs(xp, rec):
+        def post_correct(f, s, info, u, y, p, t):
+            rec(s.we)
+            w = 0.5 * s.w
+            w = w - xp.log(xp.exp(w).sum())
+            return s.replace(w=w, we=xp.exp(w))
+
+        def post_predict(f, s, u, y, p, t):
+            return s.replace(x=s.x + 0.01)
+
+        return dict(pre_correct_cb=lambda *a: None,
+                    post_correct_cb=post_correct,
+                    pre_predict_cb=lambda *a: None,
+                    post_predict_cb=post_predict)
+
+    got_we, want_we = [], []
+    st_sol = llpt.forward_trajectory(pt, torch.tensor(u), torch.tensor(y),
+                                     state0=st,
+                                     **cbs(torch, got_we.append))
+    sj_sol = llpf.forward_trajectory(
+        pj, jnp.asarray(u), jnp.asarray(y), state0=sj,
+        **cbs(jnp, lambda we: jax.debug.callback(
+            lambda v: want_we.append(np.asarray(v)), we, ordered=True)))
+    assert len(got_we) == len(want_we) == TPF
+    np.testing.assert_allclose(np.stack([np_of(w) for w in got_we]),
+                               np.stack(want_we), **RTOL)
+    for f in ("x", "w", "we", "ll"):
+        np.testing.assert_allclose(np_of(getattr(st_sol, f)),
+                                   np_of(getattr(sj_sol, f)), err_msg=f,
+                                   **RTOL)
+    assert llpt.last_route("forward_trajectory") == "sequential"
+
+
+class _OwnLoglik:
+    """A filter whose own ``loglik(u, y, p)`` takes no ``method``, as the
+    JAX package's EnKF, IMM and RBPF: the KF's sequential recursion."""
+
+    def __init__(self, kf):
+        self.kf = kf
+
+    def loglik(self, u, y, p=None):
+        return llpt.loglik(self.kf, u, y, p, method="sequential")
+
+
+def test_loglik_calls_own_loglik_without_method():
+    """``loglik(f, u, y)`` passes ``method`` only to the particle filters:
+    another filter's own ``loglik`` is called without it and the verb
+    records the sequential route, as the JAX package does."""
+    kj, kt = _kf_pair()
+    u, y, _ = _data(9)
+    got = llpt.loglik(_OwnLoglik(kt), torch.tensor(u), torch.tensor(y))
+    assert llpt.last_route("loglik") == "sequential"
+    want = llpf.loglik(kj, jnp.asarray(u), jnp.asarray(y),
+                       method="sequential")
+    np.testing.assert_allclose(float(got), float(want), **RTOL)
+    with pytest.raises(ValueError):
+        llpt.loglik(_OwnLoglik(kt), torch.tensor(u), torch.tensor(y),
+                    method="bogus")
