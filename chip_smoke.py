@@ -170,10 +170,37 @@ exits non-zero without its result lines):
    at T = 150 (against the analytic KF, and the first 100 steps against
    float64 CPU).  Sizes in ``SLICE6``, cut in T where the step loops
    are slow; every filter but the RBPF launches no kernel A-K.
+22. the last ported modules (``utilities_phase``, sizes in ``UTILS``),
+   float32 on the card, every reference float64 on the host: ``dare``,
+   ``kalman_gain``, ``dlyap`` and ``covar`` of the benchmark's and the CV
+   model within 1e-4, the CV gain against the last K of kernel H's
+   ``forward_trajectory_fused`` at T = 5e4, ``linearize`` of the
+   quadtank UKF, the observability and controllability ranks;
+   ``validation_stats`` of the temporal-parallel ``forward_trajectory``
+   (kernel K) at T = 1e5 within 1e-4 of float64 on the same e and S, the
+   share of NIS inside its 95 % bounds 0.95 ± 0.01, ``kde`` of kernel
+   A's segment-mode cloud at N = 1e5 integrating to 1 within 1e-3,
+   ``diagnose_solution`` naming the step a solution was made to fail
+   at; a PF state at N = 1e5 saved after 100 steps and resumed, 100 more
+   updates bitwise equal to the uninterrupted run's (kernel E's slot
+   stage and B resample), a KF solution at T = 1e5 round-tripped
+   bitwise; ``trace`` around ``pf.loglik`` (N = 1e5, T = 1000) writing
+   the ``annotate`` region, kernel A's launch counted by
+   ``dispatched_launches``, ``step_timer`` at least kernel A's time; a
+   bank of 1024 stacked KFs (per-member R1 scales, T = 200): eight
+   members within 1e-4 of float64 ``loglik``, the gradient in the scales
+   within 1e-3; ``metropolis_parallel`` on a world of size 1 (NCCL), 8
+   chains x 50 iterations of the KF ``loglik`` at T = 1e5 (kernel K),
+   bitwise equal to the meshless call; ``dryrun.entry()`` (kernel E's
+   slot stage and B) and ``dryrun_multichip()`` (kernel A's segment mode
+   and K's full scan; its ``sharded_update`` resamples one rank's cloud
+   by a search, as the JAX package's ``_resample_global``), the loss and
+   gradient within 1e-4 of float64.  Each of these stages has its own
+   launch counts, reset before it and read after it.
 
 Launch counts are reset just before each path's run (phases 4-5, 6, 7,
-8, 9, 10, 11, 12, 13, 14, 15, 17, 18, 20 and 21) and read just after it; every
-kernel of the path must have launched there.  The kernels line (with
+8, 9, 10, 11, 12, 13, 14, 15, 17, 18, 20, 21, and each stage of 22) and
+read just after it; every kernel of the path must have launched there.  The kernels line (with
 each kernel's bound: the larger of its bytes over 3.35 TB/s and its
 operations over 67 T/s; kernel A's segment mode, which two paths run,
 also gives each path's count under ``launches_by_path``) and the card's
@@ -2570,6 +2597,417 @@ def sharded_enkf_check(dev, mesh, kf32, smi, N):
         f"{float(info.ll)}; {dt * 1e3:.1f} ms ({smi})")
 
 
+#: phase 22's sizes (the module doc)
+UTILS = dict(T_gain=50_000, T_val=100_000, maxlag=50, N_kde=100_000,
+             T_kde=200, N_ckpt=100_000, steps_ckpt=100, T_ckpt_sol=100_000,
+             B_bank=1024, T_bank=200, n_chains=8, R_chains=50,
+             T_chains=100_000)
+
+
+def _simulate_np(A, B, C, R1, R2, T, seed, n=None, u=0.3):
+    """The linear-Gaussian model's data in float64 numpy for the scalar
+    input ``u`` (a number, or [T]): ``y`` [T, ny] (``n`` None) or
+    [n, T, ny]."""
+    A, B, C, R1, R2 = (np.array(M, dtype=np.float64)
+                       for M in (A, B, C, R1, R2))
+    rng = np.random.default_rng(seed)
+    shape = (T,) if n is None else (T, n)
+    w = rng.multivariate_normal(np.zeros(len(A)), R1, shape)
+    v = rng.multivariate_normal(np.zeros(len(C)), R2, shape)
+    x = np.zeros((len(A),) if n is None else (n, len(A)))
+    ys = np.empty(shape + (len(C),))
+    u = np.broadcast_to(np.asarray(u, dtype=np.float64), (T,))
+    for k in range(T):
+        ys[k] = x @ C.T + v[k]
+        x = x @ A.T + u[k] * B[:, 0] + w[k]
+    return ys if n is None else ys.transpose(1, 0, 2)
+
+
+def utilities_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2,
+                    sizes=UTILS):
+    """Phase 22: the last ported modules (see the module doc): analysis,
+    diagnostics, checkpoints, profiling, the stacked bank, the mesh PMMH
+    and the dry run; adds the phase's launches to ``launches``."""
+    import json
+    import tempfile
+    import types
+
+    import torch.distributed as dist
+
+    import lowlevelparticlefilters_jl_tpu_torch as llpt
+    from lowlevelparticlefilters_jl_tpu_torch import convert, dryrun
+    from lowlevelparticlefilters_jl_tpu_torch.kernels import pf_scan
+    from lowlevelparticlefilters_jl_tpu_torch.parallel import sharded as sh
+    from lowlevelparticlefilters_jl_tpu_torch.utils import profiling
+
+    z = sizes
+    t_phase = time.perf_counter()
+    times = {}
+    f64 = dict(device="cpu")
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def rel(got, ref) -> float:
+        """max |got − ref| over max |ref| (float64 on the host)."""
+        got = torch.as_tensor(got).detach().double().cpu()
+        ref = torch.as_tensor(ref).detach().double().cpu()
+        return float((got - ref).abs().max() / ref.abs().max())
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        times[name] = round(time.perf_counter() - t0, 3)
+
+    path = {k.name: 0 for k in kernels}
+    per_stage = {}
+
+    def zero():
+        for k in kernels:
+            k.launches = 0
+
+    def take(stage, need=()):
+        """The launches since :func:`zero`, kept as ``stage``'s and added
+        to the phase's; each kernel of ``need`` must be among them."""
+        got = {k.name: k.launches for k in kernels if k.launches}
+        zero()
+        per_stage[stage] = got
+        for name, n_ in got.items():
+            path[name] += n_
+        missing = [name for name in need if not got.get(name)]
+        require(not missing, f"phase 22's {stage} stage launched none of "
+                f"{missing}: {got}")
+
+    zero()
+
+    # ---- analysis: f32 on the card against f64 on the host ---------------
+    t0 = time.perf_counter()
+    models = {"benchmark": (A, B, C, R1, R2),
+              "cv": (CV_A, None, CV_C, 0.1 * np.eye(4), np.eye(2))}
+    worst = {}
+    for name, (Am, Bm, Cm, Q, R) in models.items():
+        kc = convert.kalman_filter_from_numpy(Am, Bm, Cm, 0, Q, R, **f32)
+        kh = convert.kalman_filter_from_numpy(Am, Bm, Cm, 0, Q, R, **f64)
+        nx, nu = kc.nx, max(kc.nu, 0)
+        x0c, u0c = torch.zeros(nx, **f32), torch.zeros(nu, **f32)
+        x0h = torch.zeros(nx, dtype=torch.float64)
+        u0h = torch.zeros(nu, dtype=torch.float64)
+        got = (llpt.dare(kc.A, kc.C, kc.R1, kc.R2),
+               llpt.kalman_gain(kc.A, C=kc.C, R1=kc.R1, R2=kc.R2),
+               llpt.dlyap(kc.A, kc.R1), llpt.covar(kc, x0c, u0c))
+        ref = (llpt.dare(kh.A, kh.C, kh.R1, kh.R2),
+               llpt.kalman_gain(kh.A, C=kh.C, R1=kh.R1, R2=kh.R2),
+               llpt.dlyap(kh.A, kh.R1), llpt.covar(kh, x0h, u0h))
+        for what, g_, r_ in zip(("dare", "kalman_gain", "dlyap", "covar"),
+                                got, ref):
+            require(g_.is_cuda and g_.dtype == torch.float32,
+                    f"{what} of the {name} model on the card in float32")
+            worst[f"{name} {what}"] = rel(g_, r_)
+        if name == "cv":
+            K_cv = got[1]
+            obs = llpt.observability(kc, x0c, u0c)
+        else:
+            ctr = llpt.controllability(kc, x0c, u0c)
+    bad = {k: v for k, v in worst.items() if not v < 1e-4}
+    require(not bad, f"analysis within 1e-4 relative of float64: {bad}")
+    require(obs["rank"] == 4 and obs["isobservable"]
+            and ctr["rank"] == 2 and ctr["iscontrollable"],
+            f"CV observability rank {obs['rank']}, benchmark "
+            f"controllability rank {ctr['rank']}")
+    # the stationary gain against the last step's K of kernel H at T_gain
+    kcv = convert.kalman_filter_from_numpy(CV_A, None, CV_C, 0,
+                                           0.1 * np.eye(4), np.eye(2), **f32)
+    ycv = torch.from_numpy(_simulate_np(CV_A, np.zeros((4, 1)), CV_C,
+                                        0.1 * np.eye(4), np.eye(2),
+                                        z["T_gain"], 31)).float().to(dev)
+    solh = kcv.forward_trajectory_fused(None, ycv)
+    require(solh.route == "cuda_fused_scan", f"CV forward_trajectory_fused "
+            f"route {solh.route}")
+    rel_gain = rel(solh.K[-1], K_cv)
+    require(rel_gain < 1e-4, f"kalman_gain of the CV model within 1e-4 of "
+            f"kernel H's last K at T={z['T_gain']} (got {rel_gain:.3g})")
+    # linearize the quadtank UKF at an operating point
+    xq = [1.3, 0.7]
+    lin_c = llpt.linearize(quadtank_ukf(dev, torch.float32),
+                           torch.tensor(xq, **f32), torch.zeros(0, **f32))
+    lin_h = llpt.linearize(quadtank_ukf("cpu", torch.float64),
+                           torch.tensor(xq, dtype=torch.float64),
+                           torch.zeros(0, dtype=torch.float64))
+    rel_lin = max(rel(g_, r_) for g_, r_ in zip(lin_c[::2], lin_h[::2]))
+    require(rel_lin < 1e-4 and lin_c[1].shape == (2, 0),
+            f"quadtank linearize within 1e-4 of float64 ({rel_lin:.3g})")
+    take("analysis", ("akf_scan",))
+    lap("analysis", t0)
+    log("utilities", f"analysis: {({k: f'{v:.3g}' for k, v in worst.items()})}"
+        f"; CV gain vs kernel H's last K {rel_gain:.3g}; quadtank "
+        f"linearize {rel_lin:.3g}; ranks obs {obs['rank']} ctrb "
+        f"{ctr['rank']}; {times['analysis']} s ({smi})")
+
+    # ---- diagnostics -------------------------------------------------------
+    t0 = time.perf_counter()
+    T = z["T_val"]
+    kf32 = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, **f32)
+    # a white input, so that the innovation-input correlation is defined
+    uv = 0.3 + 0.5 * torch.from_numpy(
+        np.random.default_rng(34).normal(size=(T, 1)))
+    yv = torch.from_numpy(_simulate_np(A, B, C, R1, R2, T, 32,
+                                       u=uv[:, 0].numpy()))
+    sol = llpt.forward_trajectory(kf32, uv.float().to(dev),
+                                  yv.float().to(dev))
+    require(sol.route == "cuda_temporal_parallel", f"forward_trajectory "
+            f"T={T} route {sol.route}")
+    vs = llpt.validation_stats(sol, maxlag=z["maxlag"])
+    host = types.SimpleNamespace(e=sol.e.double().cpu(),
+                                 S=sol.S.double().cpu(),
+                                 u=sol.u.double().cpu())
+    vr = llpt.validation_stats(host, maxlag=z["maxlag"])
+    errs = {k: rel(vs[k], vr[k]) if k in ("rms", "nis") else float(
+        (vs[k].double().cpu() - vr[k]).abs().max())
+        for k in ("rms", "nis", "autocorrelation", "crosscorrelation")}
+    require(all(v < 1e-4 for v in errs.values())
+            and vs["autocorrelation"].shape == (z["maxlag"] + 1, 2)
+            and vs["crosscorrelation"].shape == (z["maxlag"], 1, 2)
+            and vs["nis"].is_cuda, f"validation_stats within 1e-4 of "
+            f"float64 on the same e and S: {errs}")
+    lo, hi = vs["nis_bounds"]
+    share = float(((vs["nis"] >= lo) & (vs["nis"] <= hi)).double().mean())
+    require(abs(share - 0.95) <= 0.01, f"NIS inside its 95 % bounds: "
+            f"{share:.4f}")
+    take("validation_stats", ("assoc_scan",))
+    # kde of kernel A's segment-mode cloud
+    pfk = convert.particle_filter_from_numpy(
+        z["N_kde"], *convert.linear_callbacks(A, B, C, device=dev), R1, R2,
+        R1, resample_threshold=THRESH, device=dev)
+    Tk = z["T_kde"]
+    x0 = pfk.init(torch.Generator(device=dev).manual_seed(SEED)).x
+    w0 = torch.full((z["N_kde"],), -math.log(z["N_kde"]), device=dev)
+    _, x_fin, w_fin = llpt.pf_segment_fused(
+        pfk, uv[:Tk].float().to(dev), yv[:Tk].float().to(dev), SEED, x0, w0)
+    we = torch.softmax(w_fin, 0)
+    grid, dens = llpt.kde(x_fin[:, 0], we)
+    mass = float(torch.trapezoid(dens.double(), grid.double()))
+    require(grid.is_cuda and abs(mass - 1.0) < 1e-3,
+            f"kde of the segment cloud integrates to 1 (got {mass})")
+    take("kde", (pf_scan.PF_SEGMENT_SCAN.name,))
+    # a solution made to fail at step 4
+    bad4 = lambda f, st, u, y, p, t: (  # noqa: E731
+        -10.0 if t == 4 else 1.0) * torch.eye(2, **f32)
+    sol4 = llpt.forward_trajectory(kf32, uv[:10].float().to(dev),
+                                   yv[:10].float().to(dev),
+                                   pre_correct_cb=bad4)
+    rep = llpt.diagnose_solution(sol4)
+    ok_rep = llpt.diagnose_solution(llpt.forward_trajectory(
+        kf32, uv[:10].float().to(dev), yv[:10].float().to(dev)))
+    require(rep["ok"] is False and rep["first_bad_step"] == 4
+            and ok_rep == {"ok": True},
+            f"diagnose_solution names step 4: {rep.get('first_bad_step')}, "
+            f"{rep.get('reason')}")
+    take("diagnose_solution")
+    lap("diagnostics", t0)
+    log("utilities", f"validation_stats T={T} maxlag {z['maxlag']}: errors "
+        f"vs float64 {errs}, NIS share in bounds {share:.4f}; kde of the "
+        f"segment cloud N={z['N_kde']} mass {mass:.6f}; diagnose_solution: "
+        f"step {rep['first_bad_step']} ({rep['reason']}); "
+        f"{times['diagnostics']} s ({smi})")
+
+    # ---- checkpoints -------------------------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="llpt_ckpt_") as tmp:
+        pfc = convert.particle_filter_from_numpy(
+            z["N_ckpt"], *convert.linear_callbacks(A, B, C, device=dev), R1,
+            R2, R1, resample_threshold=0.5, device=dev)
+        n = z["steps_ckpt"]
+        uc, yc = uv[:2 * n].float().to(dev), yv[:2 * n].float().to(dev)
+
+        def steps(st, ks):
+            lls = []
+            for k in ks:
+                st, info = pfc.update(st, uc[k], yc[k])
+                lls.append(info.ll)
+            return st, torch.stack(lls)
+
+        st, _ = steps(pfc.init(torch.Generator(device=dev).manual_seed(SEED)),
+                      range(n))
+        llpt.save_pytree(f"{tmp}/pf.npz", st)
+        want, ll_want = steps(st, range(n, 2 * n))
+        back = llpt.resume_state(pfc, f"{tmp}/pf.npz",
+                                 generator=torch.Generator(device=dev))
+        require(back.x.is_cuda and back.generator.device.type == "cuda"
+                and back.t == n, "the resumed PF state on the card at step "
+                f"{back.t}")
+        got, ll_got = steps(back, range(n, 2 * n))
+        require(torch.equal(got.x, want.x) and torch.equal(got.we, want.we)
+                and torch.equal(ll_got, ll_want),
+                f"{n} updates from the loaded PF state bitwise equal to {n} "
+                "from the original")
+        take("checkpoint_pf", ("systematic_slots", "systematic_gather"))
+        Ts = z["T_ckpt_sol"]
+        solk = llpt.forward_trajectory(kf32, uv[:Ts].float().to(dev),
+                                       yv[:Ts].float().to(dev))
+        llpt.save_pytree(f"{tmp}/sol.npz", solk)
+        solb = llpt.load_pytree(f"{tmp}/sol.npz", solk)
+        fields = [k for k in ("u", "y", "x", "xt", "R", "Rt", "ll", "e", "K",
+                              "S", "t", "ok")
+                  if isinstance(getattr(solk, k), torch.Tensor)]
+        require(all(torch.equal(getattr(solb, k), getattr(solk, k))
+                    and getattr(solb, k).is_cuda for k in fields)
+                and solb.route == solk.route, f"the KF solution at T={Ts} "
+                f"round-trips bitwise ({fields})")
+        take("checkpoint_kf", ("assoc_scan",))
+        lap("checkpoint", t0)
+        log("utilities", f"checkpoint: PF N={z['N_ckpt']} {n} + {n} updates "
+            f"bitwise from the loaded state; KF solution T={Ts} bitwise "
+            f"({len(fields)} tensors); {times['checkpoint']} s ({smi})")
+
+        # ---- profiling -----------------------------------------------------
+        t0 = time.perf_counter()
+        pfm = convert.particle_filter_from_numpy(
+            N_MAIN, *convert.linear_callbacks(A, B, C, device=dev), R1, R2,
+            R1, resample_threshold=THRESH, device=dev)
+        um, ym = uv[:T_MAIN].float().to(dev), yv[:T_MAIN].float().to(dev)
+        g = torch.Generator(device=dev)
+
+        def traced_call():
+            with profiling.trace(f"{tmp}/trace"):
+                with profiling.annotate("llpt_pf_loglik"):
+                    pfm.loglik(um, ym, generator=g.manual_seed(SEED))
+
+        n_disp, names = dispatched_launches(traced_call, kernels)
+        files = list(Path(f"{tmp}/trace").glob("*.json"))
+        with open(files[0]) as fh:
+            regions = {e.get("name") for e in json.load(fh)["traceEvents"]}
+        require(len(files) == 1 and "llpt_pf_loglik" in regions
+                and names.count(pf_scan.PF_LOGLIK_SCAN.name) == 1,
+                f"trace of pf.loglik: {len(files)} files, region "
+                f"{'llpt_pf_loglik' in regions}, kernel A launches "
+                f"{names.count(pf_scan.PF_LOGLIK_SCAN.name)}")
+        # the traced call's launches, which dispatched_launches took back
+        per_stage["trace"] = {n_: names.count(n_) for n_ in path
+                              if n_ in names}
+        for n_, c_ in per_stage["trace"].items():
+            path[n_] += c_
+        st_s = profiling.step_timer(lambda: pfm.loglik(
+            um, ym, generator=g.manual_seed(SEED)), repeats=5)
+        a_ms = stats[pf_scan.PF_LOGLIK_SCAN.name]["ms"]
+        require(st_s * 1e3 >= a_ms, f"step_timer {st_s * 1e3:.3f} ms at least "
+                f"kernel A's {a_ms:.3f} ms")
+        take("step_timer", (pf_scan.PF_LOGLIK_SCAN.name,))
+        lap("profiling", t0)
+        log("utilities", f"profiling: trace {files[0].name} holds the region, "
+            f"{n_disp} dispatched launches, kernel A once; step_timer of "
+            f"pf.loglik N={N_MAIN} T={T_MAIN} {st_s * 1e3:.3f} ms (kernel A "
+            f"{a_ms:.3f} ms by CUDA events); {times['profiling']} s ({smi})")
+
+    # ---- the stacked bank ------------------------------------------------
+    t0 = time.perf_counter()
+    Bk, Tb = z["B_bank"], z["T_bank"]
+    ysb = torch.from_numpy(_simulate_np(A, B, C, R1, R2, Tb, 33, n=Bk))
+    usb = torch.full((Bk, Tb, 1), 0.3, dtype=torch.float64)
+
+    def stacked_bank(dt, device):
+        kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, dtype=dt,
+                                              device=device)
+        s = torch.linspace(0.5, 2.0, Bk, dtype=dt, device=device)
+        s.requires_grad_()
+        bank = llpt.stack_filters([kf.replace(R1=s[b] * kf.R1)
+                                   for b in range(Bk)])
+        t1 = time.perf_counter()
+        ll = llpt.bank_loglik(bank, usb.to(dt).to(device),
+                              ysb.to(dt).to(device), in_axes=(0, 0, 0))
+        gs, = torch.autograd.grad(ll.sum(), s)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return ll.detach(), gs, (time.perf_counter() - t1) * 1e3, kf, s
+
+    ll_b, g_b, ms_b, _, _ = stacked_bank(torch.float32, dev)
+    _, g_h, _, kfh, s_h = stacked_bank(torch.float64, "cpu")
+    picks = list(range(0, Bk, Bk // 8))[:8]
+    ll_err = max(abs(float(ll_b[b]) - float(r_)) / abs(float(r_))
+                 for b in picks for r_ in [llpt.loglik(kfh.replace(
+                     R1=float(s_h[b].detach()) * kfh.R1), usb[b], ysb[b])])
+    g_err = rel(g_b, g_h)
+    require(ll_b.is_cuda and ll_err < 1e-4 and g_err < 1e-3,
+            f"stacked bank B={Bk}: 8 members within 1e-4 of float64 "
+            f"single-filter loglik ({ll_err:.3g}), gradient within 1e-3 "
+            f"({g_err:.3g})")
+    take("stacked_bank")    # vmap and autograd: the sequential route
+    lap("stacked_bank", t0)
+    log("utilities", f"stacked bank B={Bk} T={Tb}: bank_loglik + gradient "
+        f"{ms_b:.1f} ms on the card; members vs float64 {ll_err:.3g}, "
+        f"gradient {g_err:.3g}; {times['stacked_bank']} s ({smi})")
+
+    # ---- mesh PMMH on a world of size 1 (NCCL) ----------------------------
+    t0 = time.perf_counter()
+    mesh = sh.particle_mesh(device=dev)
+    Tc = z["T_chains"]
+    uch, ych = uv[:Tc].float().to(dev), yv[:Tc].float().to(dev)
+
+    def ll_theta(theta):
+        kf = convert.kalman_filter_from_numpy(
+            A, B, C, 0, R1, math.exp(float(theta[0])) * np.array(R2), **f32)
+        return llpt.loglik(kf, uch, ych)
+
+    def chains(m):
+        return llpt.metropolis_parallel(
+            5, ll_theta, z["R_chains"],
+            torch.tensor([0.1], dtype=torch.float64),
+            generator=torch.Generator().manual_seed(SEED),
+            n_chains=z["n_chains"], mesh=m)
+
+    c_mesh = chains(mesh)
+    route_c = llpt.last_route()
+    c_none = chains(None)
+    require(torch.equal(c_mesh, c_none) and route_c
+            == "cuda_temporal_parallel" and bool(torch.isfinite(c_mesh).all()),
+            f"{z['n_chains']} mesh chains x {z['R_chains']} iterations "
+            f"(route {route_c}) bitwise equal to the meshless call")
+    take("mesh_pmmh", ("assoc_scan",))
+    lap("mesh_pmmh", t0)
+    log("utilities", f"mesh PMMH: {z['n_chains']} chains x {z['R_chains']} "
+        f"at T={Tc} on a world of {mesh.size} (NCCL), bitwise equal to "
+        f"the meshless call; {times['mesh_pmmh']} s, "
+        f"{times['mesh_pmmh'] / (2 * z['n_chains'] * z['R_chains']) * 1e3:.2f}"
+        f" ms an iteration ({smi})")
+
+    # ---- the dry run -------------------------------------------------------
+    t0 = time.perf_counter()
+    fn, args = dryrun.entry(dev)
+    st_e, ll_e = fn(*args)
+    require(st_e.x.is_cuda and bool(torch.isfinite(st_e.x).all())
+            and math.isfinite(float(ll_e)), "dryrun.entry() on the card")
+    take("dryrun_entry", ("systematic_slots", "systematic_gather"))
+    out = dryrun.dryrun_multichip(device=dev)
+    # its sharded_update resamples on one rank by a search over the
+    # gathered weights (parallel/sharded.py's _resample_global, as the JAX
+    # package's, which has no Pallas kernel there): no E or B to require
+    take("dryrun_multichip", (pf_scan.PF_SEGMENT_SCAN.name,
+                              "assoc_scan_full"))
+    p0 = {"A": torch.tensor(A, dtype=torch.float64, requires_grad=True),
+          "logdiagR1": torch.log(torch.diagonal(torch.tensor(
+              R1, dtype=torch.float64))).requires_grad_()}
+    loss64 = dryrun.bank_loss(p0, out["us"], out["ys"]) / out["us"].shape[0]
+    g64 = torch.autograd.grad(loss64, list(p0.values()))
+    loss64 = loss64.detach()
+    err_loss = abs(float(out["loss"]) - float(loss64)) / abs(float(loss64))
+    err_g = max(rel(out["grads"][k], g_) for k, g_ in zip(p0, g64))
+    require(out["loss"].is_cuda and out["layout"] == (1, 1)
+            and err_loss < 1e-4 and err_g < 1e-4,
+            f"dry run on the card: loss {err_loss:.3g}, gradient "
+            f"{err_g:.3g} from float64 (bound 1e-4)")
+    lap("dryrun", t0)
+    log("utilities", f"dry run: entry ll {float(ll_e):.4f}; "
+        f"dryrun_multichip loss {float(out['loss']):.6f} (float64 "
+        f"{float(loss64):.6f}, {err_loss:.3g}), gradient {err_g:.3g}; "
+        f"sharded lls PF {float(out['pf_ll']):.4f} EnKF "
+        f"{float(out['enkf_ll']):.4f} fused {float(out['fused_ll']):.4f} "
+        f"time-sharded {float(out['ts_ll']):.4f}; {times['dryrun']} s "
+        f"({smi})")
+    dist.destroy_process_group()
+
+    for name, n_ in path.items():
+        launches[name] += n_
+    log("utilities", f"phase 22 launches by stage {per_stage}; stage "
+        f"seconds {times}")
+    log("utilities", f"phase 22 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3247,6 +3685,7 @@ def main():
                    (u6m, y6m, ll6m_ref))
     paramest_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2)
     slice6_phase(dev, kernels, stats, launches, smi)
+    utilities_phase(dev, kernels, stats, launches, smi, A, B, C, R1, R2)
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"build included")
 

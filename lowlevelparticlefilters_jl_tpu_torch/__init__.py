@@ -10,9 +10,12 @@ noise densities, the smoothers (RTS, MBF, the UKF/EKF backward
 passes, the temporal-parallel and iterated parallel smoothers, FFBS),
 parameter estimation (prediction errors, PMMH, covariance tuning), the
 constant, time-stacked, callable and indexing system matrices, the
-reference's flat accessor verbs, and the remaining filters: square-root
+reference's flat accessor verbs, the remaining filters (square-root
 KF and EKF, unknown-input KF, EnKF (also member-sharded), IMM, RBPF,
-marginalized UKF and DAE-UKF.
+marginalized UKF and DAE-UKF), the validation statistics and
+linear-systems analysis, checkpoints, profiling helpers, matplotlib
+plots (``plotting``), banks of stacked filters (``stack_filters``) and
+a multi-rank dry run (``dryrun.py``).
 On CUDA tensors ``pf.loglik``, ``mean_trajectory(pf, ...)`` and
 ``pf_stats_fused`` run the whole recursion as one hand-written kernel
 (kernels/pf_scan.py), the ``exact_resample`` resampling runs kernel E
@@ -158,7 +161,8 @@ from .parallel.temporal import (parallel_forward_trajectory,
                                 parallel_ukf_smooth)
 from .smoothing import (smooth, rts_smooth, smooth_mbf, ffbs_smooth,
                         smoothed_mean, smoothed_cov, smoothed_trajs)
-from .parallel.bank import bank_forward_trajectory, bank_loglik
+from .parallel.bank import (bank_forward_trajectory, bank_loglik,
+                            stack_filters)
 from .paramest import (
     triangular,
     invtriangular,
@@ -169,6 +173,39 @@ from .paramest import (
     metropolis,
     metropolis_parallel,
     autotune_covariances,
+)
+from .utils.diagnostics import (
+    innovation_rms,
+    compute_nis,
+    nis_bounds,
+    autocor,
+    crosscor,
+    validation_stats,
+    kde,
+    diagnose_solution,
+)
+from .utils.analysis import (
+    linearize,
+    observability,
+    controllability,
+    obsv,
+    ctrb,
+    dare,
+    dlyap,
+    kalman_gain,
+    covar,
+    kalman_filter_from_ss,
+)
+from .utils.checkpoint import save_pytree, load_pytree, resume_state
+from .utils import plotting  # matplotlib is imported when a plot is drawn
+from .utils.plotting import (
+    densityplot,
+    debugplot,
+    commandplot,
+    unscentedplot,
+    covplot,
+    validationplot,
+    sampleplot,
 )
 from .utils.signal_names import SignalNames, default_names
 from .compat import (
@@ -193,3 +230,5 @@ from .compat import (
 # naming aliases for users arriving from the reference package
 from .filters.ekf import make_iekf as IteratedExtendedKalmanFilter  # noqa
 from .filters.particle import PFState as PFstate  # noqa: N816
+
+__version__ = "0.1.0"

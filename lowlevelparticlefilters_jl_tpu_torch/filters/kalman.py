@@ -264,7 +264,14 @@ class KalmanFilter(AbstractKalmanFilter):
 
 
 def _check_constructor_sanity(A, alpha) -> None:
-    """Warn on α < 1 and on a dynamics matrix with |eig| >= 2."""
+    """Warn on α < 1 and on a dynamics matrix with |eig| >= 2.  Skipped
+    for tensors under a ``torch.func`` transform (a member rebuilt inside
+    ``vmap``), whose values cannot be read, as the JAX package skips it
+    for traced values."""
+    from ..routing import _under_batch_trace
+
+    if _under_batch_trace(A):
+        return
     if isinstance(alpha, (int, float)) and alpha < 1.0:
         warnings.warn("alpha should be >= 1 for exponential forgetting; "
                       "alpha < 1 leads to exponential loss of adaptation "

@@ -189,6 +189,27 @@ def default_device(device=None):
     return torch.device("cuda")
 
 
+def as_tensors(*vals, like=None) -> tuple:
+    """``vals`` as tensors.  Tensors and None stay as they are; arrays,
+    lists and numbers go to the device, and take the floating dtype, of
+    the first tensor among ``vals``, else of ``like`` (a tensor, or a
+    filter or other structure that holds some), else to the card
+    (:func:`default_device`: without one that raises)."""
+    import torch
+
+    from ..utils.struct import tree_leaves
+
+    ref = next(iter(tree_leaves(list(vals)) + tree_leaves(like)), None)
+    if ref is None:
+        kw = dict(device=default_device())
+    else:
+        kw = dict(device=ref.device)
+        if ref.is_floating_point():
+            kw["dtype"] = ref.dtype
+    return tuple(v if v is None or isinstance(v, torch.Tensor)
+                 else torch.as_tensor(v, **kw) for v in vals)
+
+
 _RAW_STREAM: list = []
 
 

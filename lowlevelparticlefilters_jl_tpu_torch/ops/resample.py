@@ -151,6 +151,15 @@ def resample(we: torch.Tensor, generator=None, M: Optional[int] = None,
     return fn(we, generator, M)
 
 
+def draw_one_categorical(logw: torch.Tensor, generator=None) -> torch.Tensor:
+    """One categorical draw from log-weights (unnormalized), by the
+    Gumbel-max trick as ``jax.random.categorical`` draws it: a 0-dim
+    int64 index on ``logw``'s device, with no host synchronization."""
+    u = _uniform(generator, logw.shape, logw).clamp_(
+        min=torch.finfo(logw.dtype).tiny)
+    return torch.argmax(logw - torch.log(-torch.log(u)))
+
+
 def resample_gather(x: torch.Tensor, we: torch.Tensor, generator=None,
                     strategy: ResamplingStrategy = "systematic",
                     exact: bool = False, *, r=None) -> torch.Tensor:

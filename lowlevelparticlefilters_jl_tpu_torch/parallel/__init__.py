@@ -9,7 +9,8 @@ from .sharded import (
     sharded_apf_update,
     sharded_ffbs_smooth,
 )
-from .bank import bank_mesh, bank_forward_trajectory, bank_loglik, shard_bank
+from .bank import (bank_mesh, bank_forward_trajectory, bank_loglik,
+                   shard_bank, stack_filters)
 from .temporal import (
     parallel_forward_trajectory,
     parallel_rts_smooth,

@@ -5,7 +5,8 @@ MAP covariance tuning, PMMH (counterpart of ``paramest.py``).
   residual, from the sequential recursion; differentiable by autograd and
   by ``torch.func``;
 - :func:`log_likelihood_fun`, :func:`metropolis` and
-  :func:`metropolis_parallel`: particle marginal Metropolis–Hastings.  A
+  :func:`metropolis_parallel` (also with its chains split over the ranks
+  of a ``torch.distributed`` mesh): particle marginal Metropolis–Hastings.  A
   ``torch.Generator`` stands where the JAX package takes a key, and the
   chain is a Python loop: each ``loglik`` inside it takes the verb's own
   route (kernel A for a particle filter on the card, kernel H or K for a
@@ -201,31 +202,40 @@ def metropolis_parallel(burnin: int, ll: Callable, R: int, theta0,
                         draw=None, generator: Optional[torch.Generator] = None,
                         n_chains: int = 8, ll_takes_key: bool = False,
                         mesh=None, axis_name: Optional[str] = None):
-    """``n_chains`` independent chains of :func:`metropolis`, one after the
-    other, each with a generator seeded from ``generator``; the samples
-    after ``burnin`` of every chain, concatenated to ``[(R − burnin)·
-    n_chains, nθ + 1]`` with the log-likelihood in the last column.
+    """``n_chains`` independent chains of :func:`metropolis`, each with a
+    generator seeded from a draw of ``generator``; the samples after
+    ``burnin`` of every chain, concatenated to ``[(R − burnin)·n_chains,
+    nθ + 1]`` with the log-likelihood in the last column.
 
     The chains are not run under ``torch.func.vmap``: inside a transform
-    every ``loglik`` would take the sequential route.  ``mesh=`` (one
-    chain group a device) belongs to the sharded slice and raises here.
-    """
-    if mesh is not None:
-        raise NotImplementedError(
-            "metropolis_parallel(mesh=...) is not ported yet: it belongs "
-            "with the rest of the sharded layer (ROADMAP.md, Queue 1 item "
-            "5); run the chains on one device without mesh=")
+    every ``loglik`` would take the sequential route.  With ``mesh`` (a
+    ``parallel.sharded.Mesh``; ``axis_name`` has no role, the mesh is its
+    group) every rank calls this with a generator seeded alike: rank r
+    runs chains r·k … r·k + k − 1 of the same seeds (k = n_chains / mesh
+    size), the blocks are all-gathered, and every rank returns the whole
+    array, equal to the meshless call's."""
     draw = naive_sampler(theta0) if draw is None else draw
     dev = generator.device if generator is not None else "cpu"
     seeds = torch.randint(0, 2**62, (n_chains,), generator=generator,
                           device=dev).tolist()
+    size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    if n_chains % size:
+        raise ValueError(f"n_chains={n_chains} must be divisible by the "
+                         f"mesh size {size}")
+    k = n_chains // size
     out = []
-    for seed in seeds:
+    for seed in seeds[rank * k:(rank + 1) * k]:
         g = torch.Generator(device=dev).manual_seed(int(seed))
         thetas, lls = metropolis(ll, R, theta0, draw, generator=g,
                                  ll_takes_key=ll_takes_key)
         out.append(torch.cat([thetas[burnin:], lls[burnin:, None]], -1))
-    return torch.cat(out, 0)
+    block = torch.cat(out, 0)
+    if mesh is None:
+        return block
+    from .parallel.sharded import _all_gather
+
+    parts = _all_gather(block.to(mesh.device), mesh)
+    return parts.reshape(-1, block.shape[-1]).to(block.device)
 
 
 # ---------------------------------------------------------------------------

@@ -46,11 +46,12 @@ autograd records).
 """
 from __future__ import annotations
 
-import dataclasses
 import types
 from typing import Optional
 
 import torch
+
+from .utils.struct import tree_children
 
 _LAST: dict = {}
 
@@ -87,7 +88,7 @@ def _code_names(code):
 
 
 def _tensor_leaves(v, callbacks=False, seen=None):
-    """The tensors in ``v``: tuples and lists and dataclass fields; with
+    """The tensors in ``v`` (utils/struct.py's tree rules); with
     ``callbacks``, also what a function among them closes over or reads
     as a global (a matrix in a lambda), and so on into the functions
     those reach."""
@@ -98,12 +99,10 @@ def _tensor_leaves(v, callbacks=False, seen=None):
     if id(v) in seen:
         return
     seen.add(id(v))
-    if isinstance(v, (tuple, list)):
-        for x in v:
+    kids = tree_children(v)
+    if kids is not None:
+        for _, x in kids:
             yield from _tensor_leaves(x, callbacks, seen)
-    elif dataclasses.is_dataclass(v) and not isinstance(v, type):
-        for f in dataclasses.fields(v):
-            yield from _tensor_leaves(getattr(v, f.name), callbacks, seen)
     elif callbacks and isinstance(v, types.FunctionType):
         for cell in v.__closure__ or ():
             try:

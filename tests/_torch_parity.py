@@ -370,6 +370,45 @@ def _enkf_case(mesh, e: dict) -> list:
     return [_np(ss.X), float(ll), _np(ps.X), float(info.ll), ss.t]
 
 
+def _pmmh_case(mesh, c: dict) -> list:
+    """``metropolis_parallel`` of the KF's ll in log R2 scale, over the
+    mesh and without it, from generators seeded alike: ``[mesh, meshless]``
+    (every rank's mesh result is the whole array)."""
+    import math
+
+    from lowlevelparticlefilters_jl_tpu_torch import convert
+    from lowlevelparticlefilters_jl_tpu_torch.paramest import (
+        metropolis_parallel)
+    from lowlevelparticlefilters_jl_tpu_torch.trajectory import loglik
+
+    u, y = torch.tensor(c["u"][:20]), torch.tensor(c["y"][:20])
+
+    def ll(theta):
+        kf = convert.kalman_filter_from_numpy(
+            c["A"], c["B"], c["C"], 0, c["R1"],
+            math.exp(float(theta[0])) * c["R2"], device="cpu")
+        return loglik(kf, u, y)
+
+    def chains(m):
+        return _np(metropolis_parallel(
+            1, ll, 6, torch.tensor([0.2], dtype=torch.float64),
+            generator=torch.Generator().manual_seed(9), n_chains=8, mesh=m))
+
+    return [chains(mesh), chains(None)]
+
+
+def _dryrun_case(mesh) -> dict:
+    """``dryrun_multichip`` on the mesh's group in float64, every result
+    as numpy."""
+    from lowlevelparticlefilters_jl_tpu_torch import dryrun
+
+    out = dryrun.dryrun_multichip(mesh.group, device="cpu",
+                                  dtype=torch.float64)
+    return {k: (v if k == "layout" else
+                {n: _np(t) for n, t in v.items()} if isinstance(v, dict)
+                else _np(v)) for k, v in out.items()}
+
+
 def _sharded_cases(mesh, c: dict, stats: bool) -> dict:
     """The port's sharded verbs on ``mesh`` with the inputs of ``c`` (see
     tests/test_torch_sharded.py); every result as numpy, blocks local."""
@@ -430,6 +469,8 @@ def _sharded_cases(mesh, c: dict, stats: bool) -> dict:
     finally:
         sh._ring_exchange = ring
     out["enkf"] = _enkf_case(mesh, c["enkf"])
+    out["pmmh"] = _pmmh_case(mesh, c)
+    out["dryrun"] = _dryrun_case(mesh)
     if not stats:
         return out
 

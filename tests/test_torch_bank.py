@@ -155,5 +155,44 @@ def test_vmapped_banks_match_loops():
     shared = llpt.bank_loglik(kt, us[0], ys, in_axes=(None, None, 0))
     np.testing.assert_allclose(float(shared[1]), float(llpt.loglik(
         kt, us[0], ys[1])), rtol=1e-12)
-    with pytest.raises(NotImplementedError):
-        llpt.bank_loglik(kt, us, ys, in_axes=(0, 0, 0))
+    # a bank of stacked filters, member b with R1 scaled by s_b, against
+    # the JAX package's vmap over a tree_map(jnp.stack)-stacked filter
+    import jax
+    from lowlevelparticlefilters_jl_tpu.parallel import bank as jpbank
+
+    Bs, Ts = 4, 30
+    rng = np.random.default_rng(7)
+    us4, ys4 = rng.normal(size=(Bs, Ts, 1)), rng.normal(size=(Bs, Ts, 2))
+    scales = np.array([0.5, 1.0, 1.7, 3.0])
+
+    def jbank_of(s):
+        kjs = [_both()[0].replace(R1=s[b] * jnp.asarray(R1))
+               for b in range(Bs)]
+        return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *kjs)
+
+    def jll(s):
+        return jpbank.bank_loglik(jbank_of(s), jnp.asarray(us4),
+                                jnp.asarray(ys4), in_axes=(0, 0, 0))
+
+    ll_j, g_j = jax.jit(lambda s: (jll(s), jax.grad(
+        lambda s: jll(s).sum())(s)))(jnp.asarray(scales))
+    sol_j = jax.jit(lambda s: jpbank.bank_forward_trajectory(
+        jbank_of(s), jnp.asarray(us4), jnp.asarray(ys4),
+        in_axes=(0, 0, 0)))(jnp.asarray(scales))
+    st = torch.tensor(scales, requires_grad=True)
+    stacked = llpt.stack_filters([kt.replace(R1=st[b] * torch.tensor(R1))
+                                  for b in range(Bs)])
+    assert stacked.R1.shape == (Bs, 2, 2) and stacked.A.shape == (Bs, 2, 2)
+    ll_t = llpt.bank_loglik(stacked, torch.tensor(us4), torch.tensor(ys4),
+                            in_axes=(0, 0, 0))
+    g_t, = torch.autograd.grad(ll_t.sum(), st)
+    np.testing.assert_allclose(np_of(ll_t), np_of(ll_j), rtol=1e-10)
+    np.testing.assert_allclose(np_of(g_t), np_of(g_j), rtol=1e-10)
+    sol_t = llpt.bank_forward_trajectory(stacked, torch.tensor(us4),
+                                         torch.tensor(ys4), in_axes=(0, 0, 0))
+    for f in ("x", "xt", "R", "Rt", "e", "K", "S", "ll"):
+        np.testing.assert_allclose(np_of(getattr(sol_t, f)),
+                                   np_of(getattr(sol_j, f)), rtol=1e-10,
+                                   atol=1e-14, err_msg=f)
+    with pytest.raises(ValueError, match="'KalmanFilter.A'"):
+        llpt.stack_filters([kt.replace(A=lambda x, u, p, t: x)] * 2)

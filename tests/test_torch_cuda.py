@@ -1738,3 +1738,73 @@ def test_rbpf_resamples_through_e_and_b_on_card(cuda_device, monkeypatch,
         np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
                                    getattr(want, f).numpy(), rtol=1e-9,
                                    atol=1e-12, err_msg=f)
+
+
+def test_checkpoint_round_trip_of_a_card_pf_state(cuda_device, tmp_path):
+    """A PF state on the card, its generator included, saved and resumed:
+    the next steps give the same cloud and lls bit for bit, and the
+    restored tensors and generator are on the card."""
+    f, g = convert.linear_callbacks(A, B, C, device=cuda_device)
+    pf = convert.particle_filter_from_numpy(4096, f, g, R1, R2, R1,
+                                            resample_threshold=0.5,
+                                            device=cuda_device)
+    u = torch.full((10, 1), 0.3, device=cuda_device)
+    y = torch.randn((10, 2), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(2))
+
+    def run(st, ks):
+        lls = []
+        for k in ks:
+            st, info = pf.update(st, u[k], y[k])
+            lls.append(info.ll)
+        return st, torch.stack(lls)
+
+    st, _ = run(pf.init(torch.Generator(cuda_device).manual_seed(1)),
+                range(5))
+    llpt.save_pytree(str(tmp_path / "pf"), st)
+    want, ll_want = run(st, range(5, 10))
+    got = llpt.resume_state(pf, str(tmp_path / "pf"),
+                            generator=torch.Generator(cuda_device))
+    assert got.x.is_cuda and got.generator.device.type == "cuda"
+    got, ll_got = run(got, range(5, 10))
+    assert torch.equal(got.x, want.x) and torch.equal(ll_got, ll_want)
+
+
+def test_draw_one_categorical_on_card(cuda_device):
+    """One draw a call on the card, no host sync inside; the frequencies
+    of 4000 draws follow the weights."""
+    from lowlevelparticlefilters_jl_tpu_torch.ops.resample import (
+        draw_one_categorical)
+
+    p = torch.tensor([0.1, 0.2, 0.3, 0.4], device=cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(0)
+    k = draw_one_categorical(torch.log(p), g)
+    assert k.is_cuda and k.dtype == torch.int64 and k.ndim == 0
+    draws = torch.stack([draw_one_categorical(torch.log(p) + 3.0, g)
+                         for _ in range(4000)])
+    freq = torch.bincount(draws, minlength=4).double().cpu() / 4000
+    assert float((freq - p.double().cpu()).abs().max()) < 0.03
+
+
+def test_stacked_bank_on_card_matches_cpu(cuda_device):
+    """``bank_loglik`` of B = 64 stacked KFs (R1 scaled per member) on
+    the card against the same call on the CPU, float64, and its gradient
+    through the scales."""
+    Bs, T = 64, 50
+    rng = np.random.default_rng(3)
+    us, ys = rng.normal(size=(Bs, T, 1)), rng.normal(size=(Bs, T, 2))
+    res = {}
+    for dev in ("cpu", cuda_device):
+        kf = convert.kalman_filter_from_numpy(A, B, C, 0, R1, R2, device=dev)
+        s = torch.linspace(0.5, 2.0, Bs, dtype=torch.float64, device=dev)
+        s.requires_grad_()
+        stacked = llpt.stack_filters([kf.replace(R1=s[b] * kf.R1)
+                                      for b in range(Bs)])
+        ll = llpt.bank_loglik(stacked, torch.tensor(us, device=dev),
+                              torch.tensor(ys, device=dev),
+                              in_axes=(0, 0, 0))
+        gs, = torch.autograd.grad(ll.sum(), s)
+        res[str(dev)] = (ll.detach().cpu(), gs.cpu())
+    (lc, gc), (lg, gg) = res["cpu"], res[str(cuda_device)]
+    assert torch.allclose(lg, lc, rtol=1e-10) and torch.allclose(
+        gg, gc, rtol=1e-9)

@@ -242,9 +242,14 @@ def test_metropolis_parallel_and_log_likelihood_fun():
         np.testing.assert_allclose(float(ll(row[:2])), float(row[2]),
                                    **RTOL)
     assert not torch.equal(out[:5], out[5:])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    # a chain count the mesh does not divide is refused, as in JAX (the
+    # mesh form itself runs in tests/test_torch_sharded.py)
+    import types
+
+    with pytest.raises(ValueError, match="divisible by the mesh size 3"):
         llpt.metropolis_parallel(0, ll, 4, torch.tensor([0.3, -0.2]),
-                                 mesh=object())
+                                 n_chains=2,
+                                 mesh=types.SimpleNamespace(size=3, rank=0))
     with pytest.raises(ValueError):
         llpt.naive_sampler(torch.tensor([0.0, 1.0]))
     # a filter that breaks down maps to -inf, in both packages

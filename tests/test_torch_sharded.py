@@ -24,6 +24,10 @@ functions run here on meshes of 4 and 1 of the virtual CPU devices
 - The member-sharded EnKF step (``sharded_enkf_update``) against the
   port's unsharded correct + predict on the same replayed draws
   (rtol 1e-10), over four ranks and one.
+- ``metropolis_parallel(mesh=)`` over four ranks and one, bitwise equal
+  to the meshless call; ``dryrun.dryrun_multichip`` on the (2, 2) layout
+  against a world of one (rtol 1e-10), and its bank loss and gradient
+  against ``jax.value_and_grad`` of the JAX dry run's loss (rtol 1e-9).
 
 Run as a script, this file prints the 32- and 8-step segment readings
 of the fused sharded PF at chip_smoke.py's size (:func:`_segment_readings`).
@@ -176,6 +180,7 @@ def want(case, started):
                         lambda st, fn=fn, pf=pf: getattr(jsh, fn)(
                             st, pf, "p")[:3]))
                 out[fn, key, world] = go(_jstate(d, d["key"]))
+    out["dryrun"] = _jax_bank_step()
     kf = _jax_kf(case, case["A"])
     ss = jax.jit(lambda u, y: llpf.smooth(kf, u, y))(u, y)
     out["kf"] = (float(ss.sol.ll), np.asarray(ss.xT), np.asarray(
@@ -285,6 +290,78 @@ def test_sharded_ffbs_mean_near_rts(want, ranks):
     assert means[0].shape == xT.shape
     rms = float(np.sqrt(np.mean((means[0] - xT) ** 2 / varT)))
     assert rms < 0.4, rms
+
+
+@pytest.mark.parametrize("world", [WORLD, 1])
+def test_mesh_pmmh_equals_meshless(ranks, world):
+    """``metropolis_parallel(mesh=)``: each rank runs its block of the
+    chains and every rank returns the whole array, bitwise equal to the
+    meshless call's."""
+    for r in range(world):
+        got, want = ranks[r][world]["pmmh"]
+        assert got.shape == want.shape == (5 * 8, 2)
+        np.testing.assert_array_equal(got, want)
+
+
+_DRYRUN_EXACT = ("loss", "pf_ll", "pkf_ll", "ts_ll", "ts_smooth_ll")
+
+
+def test_dryrun_layouts_agree(ranks):
+    """``dryrun_multichip`` on the (2, 2) layout: the loss, gradient and
+    updated parameters, the deterministic log-likelihoods (the sharded
+    PF's correct step on the same global cloud, the temporal-parallel
+    and time-sharded KF and smoother) and the smoothed states equal a
+    world of one's (rtol 1e-10; sums in another order), the mesh chains
+    bitwise; every rank returns the replicated values."""
+    one = ranks[0][1]["dryrun"]
+    assert one["layout"] == (1, 1)
+    for r in range(WORLD):
+        got = ranks[r][WORLD]["dryrun"]
+        assert got["layout"] == (2, 2)
+        for k in _DRYRUN_EXACT:
+            np.testing.assert_allclose(got[k], one[k], **EXACT, err_msg=k)
+        for k in ("grads", "params"):
+            for n in one[k]:
+                np.testing.assert_allclose(got[k][n], one[k][n], **EXACT,
+                                           err_msg=f"{k}[{n}]")
+        np.testing.assert_array_equal(got["chains"], one["chains"])
+    np.testing.assert_allclose(np.concatenate(
+        [ranks[r][WORLD]["dryrun"]["xT"] for r in range(WORLD)]),
+        one["xT"], **EXACT)
+
+
+def _jax_bank_step():
+    """``jax.value_and_grad`` of the loss of
+    ``__graft_entry__.dryrun_multichip`` (−mean ``kf_bank_loglik``) at the
+    benchmark's model, on the port's dry-run bank data (float64)."""
+    from lowlevelparticlefilters_jl_tpu_torch import dryrun
+
+    s = {k: jnp.asarray(np.array(v)) for k, v in dryrun.SYSTEM.items()}
+    us, ys = (jnp.asarray(a.numpy()) for a in dryrun.bank_data(
+        dryrun.DRYRUN_SIZES["n_traj"], dryrun.DRYRUN_SIZES["T"]))
+
+    def loss_fn(params, us, ys):
+        kf = llpf.KalmanFilter(
+            params["A"], s["B"], s["C"], 0,
+            jnp.diag(jnp.exp(params["logdiagR1"])), s["R2"],
+            d0=llpf.MvNormal(jnp.zeros(2), 0.01 * jnp.eye(2)))
+        return -jnp.mean(llpf.kf_bank_loglik(kf, us, ys))
+
+    params = {"A": s["A"], "logdiagR1": jnp.log(jnp.diag(s["R1"]))}
+    return us, ys, jax.jit(jax.value_and_grad(loss_fn))(params, us, ys)
+
+
+def test_dryrun_bank_step_matches_jax(want, ranks):
+    """The world-1 bank loss and gradient against the JAX dry run's
+    ``jax.value_and_grad`` on the same data, rtol 1e-9."""
+    one = ranks[0][1]["dryrun"]
+    us, ys, (loss, grads) = want["dryrun"]
+    np.testing.assert_array_equal(one["us"], np.asarray(us))
+    np.testing.assert_array_equal(one["ys"], np.asarray(ys))
+    np.testing.assert_allclose(one["loss"], float(loss), rtol=1e-9)
+    for n in grads:
+        np.testing.assert_allclose(one["grads"][n], np.asarray(grads[n]),
+                                   rtol=1e-9, atol=1e-12, err_msg=n)
 
 
 def _segment_readings():
